@@ -9,19 +9,28 @@ Phases, each fatal on failure:
    CUDA versions and the PNG codec in use;
 2. build the kernels from ``rusty_sr_tpu_torch/csrc`` with nvcc;
 3. hold each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it (anime weights, factor 3, a chunk of
-   24 tiles of 256^2 padded) plus ragged odd tiles and factor 2;
-4. run the CLI end to end (``--engine fused -p anime``) on a synthetic
-   1024x768 PNG with the launch counts set to 0, check that the kernel
-   ran, that the PNG is within 1 u8 code of the same run through the
-   plain version, and that the tiled kernel path agrees with the
-   whole-image network on a small crop;
-5. time each kernel and its plain version with CUDA events.
+   the shapes the main paths give it (anime weights, factor 3, a chunk of
+   24 tiles of 256^2 padded) plus ragged odd tiles and factor 2: the
+   trunk in f32 (atol 1e-5) and in bf16 (max 1e-2, mean 1e-4), and the
+   depth-to-space kernel (byte-identical) in f32 with the addend and in
+   u8;
+4. run the CLI end to end on a synthetic 1024x768 PNG, each path with
+   the launch counts set to 0 just before it and read just after:
+   ``--engine fused -p anime`` (the f32 trunk and the shuffle ran; within
+   1 u8 code of the same run through the plain versions), ``--fast``
+   (the bf16 trunk and the shuffle ran; within 4 codes of the plain run,
+   and at least 45 dB and at most 8 codes against the exact tier),
+   ``-p bilinear`` (the shuffle ran) and ``-d`` (each byte-identical to
+   the run through the plain versions, and within 1 code of the CPU);
+   then check that the tiled kernel path agrees with the whole-image
+   network on a small crop;
+5. time each kernel and its plain version with CUDA events, and the
+   ``--fast`` CLI run on the host clock.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel with its launches, error and times.  Without a CUDA
-device, or outside the repository, it exits non-zero and prints no
-result.
+lists each kernel with its launches (summed over the CLI paths above),
+error and times.  Without a CUDA device, or outside the repository, it
+exits non-zero and prints no result.
 """
 
 import json
@@ -35,6 +44,9 @@ import time
 import numpy as np
 
 TOL = 1e-5   # f32: kernel and plain version sum K <= 800 products in other orders
+# bf16: a sum in another order can flip a bf16 rounding, and the later
+# stages carry that ulp (tests/test_torch_trunk.py)
+BF16_MAX, BF16_MEAN = 1e-2, 1e-4
 SEED = 0
 
 
@@ -64,6 +76,18 @@ def cuda_time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def time_in_turns(plain, kernel):
+    """Mean ms per call of each, timed plain, kernel, kernel, plain after
+    two warm-up calls of each."""
+    for fn in (plain, kernel):
+        fn()
+        fn()
+    times = {plain: [], kernel: []}
+    for fn in (plain, kernel, kernel, plain):
+        times[fn].append(cuda_time_ms(fn))
+    return sum(times[kernel]) / 2, sum(times[plain]) / 2
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -73,7 +97,8 @@ def main() -> int:
     from rusty_sr_tpu_torch import cli, params
     from rusty_sr_tpu_torch.api import upscale
     from rusty_sr_tpu_torch.models.sr_net import sr_apply
-    from rusty_sr_tpu_torch.ops.cuda import _build, trunk
+    from rusty_sr_tpu_torch.ops.cuda import _build, shuffle, trunk
+    from rusty_sr_tpu_torch.ops.resize import bilinear_phases_cropped
     from rusty_sr_tpu_torch.parallel import tiling
     from rusty_sr_tpu_torch.utils import imageio, native
 
@@ -103,81 +128,185 @@ def main() -> int:
 
     # 3. Each kernel against its plain version, at the main path's shapes.
     anime = params.load_builtin("anime")
-    packed3 = {k: v.to(dev) for k, v in trunk.pack_trunk_weights(
-        tiling.trunk_params(anime), 3).items()}
     lr = synthetic_image(rng, 768, 1024)
     img = lr.astype(np.float32) / 255.0
 
     def chunk_of(image, tile, count):
         ny = -(-image.shape[0] // tile)
         nx = -(-image.shape[1] // tile)
-        z, _, m = native.gather_tiles_range(image, tile, tiling.HALO, nx, 0,
-                                            min(count, ny * nx))
-        pad = ((0, count - z.shape[0]), (0, 0), (0, 0), (0, 0))
-        return (torch.from_numpy(np.pad(z, pad)).to(dev),
-                torch.from_numpy(np.pad(m, pad)).to(dev))
+        tiles = native.gather_tiles_range(image, tile, tiling.HALO, nx, 0,
+                                          min(count, ny * nx))
+        pad = ((0, count - tiles[0].shape[0]), (0, 0), (0, 0), (0, 0))
+        return [torch.from_numpy(np.pad(t, pad)).to(dev) for t in tiles]
 
-    main_x, main_m = chunk_of(img, 242, 24)          # (24, 256, 256, 3)
-    cases = [("anime f=3, 24 x 256^2", packed3, main_x, main_m, 3),
-             ("anime f=3, ragged 37", packed3,
-              *chunk_of(img[:100, :130], 37, 12), 3)]
-    f2 = {k: v.to(dev) for k, v in trunk.pack_trunk_weights(
-        params.init_params(7, 2), 2).items()}
-    cases.append(("init f=2, ragged 61", f2,
-                  *chunk_of(img[:150, :200], 61, 6), 2))
-    max_err = 0.0
-    for name, pk, x, m, f in cases:
-        got = trunk.fused_trunk(pk, x, m, f)
-        want = trunk.fused_trunk_reference(pk, x, m, f)
+    def packs(tree, f, dtype):
+        return {k: v.to(dev) for k, v in trunk.pack_trunk_weights(
+            tiling.trunk_params(tree), f, dtype).items()}
+
+    main_x, main_e, main_m = chunk_of(img, 242, 24)   # (24, 256, 256, 3)
+    cases = [("anime f=3, 24 x 256^2", anime, main_x, main_m, 3),
+             ("anime f=3, ragged 37", anime,
+              *chunk_of(img[:100, :130], 37, 12)[::2], 3),
+             ("init f=2, ragged 61", params.init_params(7, 2),
+              *chunk_of(img[:150, :200], 61, 6)[::2], 2)]
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        mode = "f32" if dtype == torch.float32 else "bf16"
+        for name, tree, x, m, f in cases:
+            pk = packs(tree, f, dtype)
+            got = trunk.fused_trunk(pk, x, m, f)
+            want = trunk.fused_trunk_reference(pk, x, m, f)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                fail(f"{mode} trunk kernel, {name}: non-finite output")
+            diff = (got - want).abs()
+            err, mean = float(diff.max()), float(diff.mean())
+            if dtype == torch.float32:
+                print(f"f32 trunk kernel vs plain, {name}: max abs err "
+                      f"{err:.3g} (tol {TOL})")
+                ok = err <= TOL
+            else:
+                print(f"bf16 trunk kernel vs plain, {name}: max abs err "
+                      f"{err:.3g}, mean {mean:.3g} (tol {BF16_MAX}, "
+                      f"{BF16_MEAN})")
+                ok = err <= BF16_MAX and mean <= BF16_MEAN
+            if not ok:
+                fail(f"{mode} trunk kernel, {name}: max abs err {err}, mean "
+                     f"{mean}")
+            max_err[dtype] = max(max_err[dtype], err)
+
+    packed3 = packs(anime, 3, torch.float32)
+    packed3_bf16 = packs(anime, 3, torch.bfloat16)
+    main_expand = trunk.fused_trunk(packed3, main_x, main_m, 3)
+    main_base = bilinear_phases_cropped(main_e, 3, tiling.HALO, tiling.HALO,
+                                        242)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    d2s_cases = [
+        ("f32 + addend, (24, 242, 242, 27)", main_expand, main_base, 3),
+        ("u8, (24, 240, 240, 27)",
+         torch.randint(0, 256, (24, 240, 240, 27), generator=gen,
+                       dtype=torch.uint8).to(dev), None, 3),
+        ("f32 + addend, f=2 ragged (6, 61, 47, 12)",
+         torch.randn((6, 61, 47, 12), generator=gen).to(dev),
+         torch.randn((6, 61, 47, 12), generator=gen).to(dev), 2)]
+    d2s_err = 0.0
+    for name, x, add, f in d2s_cases:
+        got = shuffle.depth_to_space_cuda(x, f, addend=add)
+        want = shuffle.depth_to_space_reference(x, f, add)
         torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail(f"trunk kernel, {name}: non-finite output")
-        err = float((got - want).abs().max())
-        print(f"trunk kernel vs plain, {name}: max abs err {err:.3g} "
-              f"(tol {TOL})")
-        if not err <= TOL:
-            fail(f"trunk kernel, {name}: max abs err {err} > {TOL}")
-        max_err = max(max_err, err)
+        same = (got.shape == want.shape and got.dtype == want.dtype
+                and bool((got.view(torch.uint8) == want.view(torch.uint8))
+                         .all()))
+        if same:
+            d2s_err = max(d2s_err, float((got.float() - want.float()).abs()
+                                         .max()))
+        print(f"depth-to-space kernel vs plain, {name}: "
+              f"{'byte-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"depth-to-space kernel, {name}: not byte-identical")
 
-    # 4. The main path: the CLI, end to end.
+    # 4. The main paths: the CLI, end to end.
+    def zero_counts():
+        torch.cuda.synchronize()
+        for k in trunk.LAUNCHES:
+            trunk.LAUNCHES[k] = 0
+        shuffle.LAUNCHES = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return (trunk.LAUNCHES[torch.float32],
+                trunk.LAUNCHES[torch.bfloat16], shuffle.LAUNCHES)
+
+    def run_cli(argv, what):
+        rc = cli.main(argv)
+        if rc != 0:
+            fail(f"CLI {what} exited {rc}")
+
+    def run_plain(argv, what):
+        """The CLI with every kernel swapped for its plain version."""
+        saved = tiling.fused_trunk, tiling.depth_to_space_cuda
+        tiling.fused_trunk = trunk.fused_trunk_reference
+        tiling.depth_to_space_cuda = shuffle.depth_to_space_reference
+        try:
+            run_cli(argv, what + " through the plain versions")
+        finally:
+            tiling.fused_trunk, tiling.depth_to_space_cuda = saved
+
+    def u8(path):
+        return imageio.load_image_u8(path).astype(np.int16)
+
+    def differ(a, b):
+        return int(np.abs(a - b).max()), int((a != b).sum())
+
+    hr_mpix = lr.shape[0] * 3 * lr.shape[1] * 3 / 1e6
+    launches = {"f32": 0, "bf16": 0, "d2s": 0}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        src, out_k, out_p = (os.path.join(tmp, n) for n in
-                             ("lr.png", "hr_kernel.png", "hr_plain.png"))
+        def out(name):
+            return os.path.join(tmp, name)
+
+        src = out("lr.png")
         imageio.save_image_u8(src, lr)
-        torch.cuda.synchronize()
-        trunk.LAUNCHES = 0
-        t0 = time.time()
-        rc = cli.main(["--engine", "fused", "-p", "anime", src, out_k])
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = trunk.LAUNCHES
-        if rc != 0:
-            fail(f"CLI exited {rc}")
-        if launches < 1:
-            fail("the CLI run launched no trunk kernel")
-        hr_mpix = lr.shape[0] * 3 * lr.shape[1] * 3 / 1e6
-        print(f"CLI: {lr.shape[1]}x{lr.shape[0]} -> {lr.shape[1] * 3}x"
-              f"{lr.shape[0] * 3} in {wall:.3f} s wall = "
-              f"{hr_mpix / wall:.2f} HR MPix/s ({launches} trunk launches; "
-              f"{card})")
-        plain_trunk = tiling.fused_trunk
-        tiling.fused_trunk = trunk.fused_trunk_reference
-        try:
-            rc = cli.main(["--engine", "fused", "-p", "anime", src, out_p])
-        finally:
-            tiling.fused_trunk = plain_trunk
-        if rc != 0:
-            fail(f"CLI through the plain trunk exited {rc}")
-        hk = imageio.load_image_u8(out_k).astype(np.int16)
-        hp = imageio.load_image_u8(out_p).astype(np.int16)
-        if hk.shape != (lr.shape[0] * 3, lr.shape[1] * 3, 3):
-            fail(f"CLI output has shape {hk.shape}")
-        codes = int(np.abs(hk - hp).max())
-        print(f"CLI PNG, kernel vs plain trunk: max {codes} u8 codes "
-              f"({int((hk != hp).sum())} values differ)")
-        if codes > 1:
-            fail(f"CLI output differs by {codes} u8 codes from the plain run")
+        for tier, flags in (("exact", []), ("fast", ["--fast"])):
+            argv = ["--engine", "fused", "-p", "anime", *flags, src]
+            zero_counts()
+            t0 = time.time()
+            run_cli(argv + [out(f"{tier}_kernel.png")], tier)
+            n32, n16, nd = counts()
+            wall = time.time() - t0
+            ran = n32 if tier == "exact" else n16
+            print(f"CLI {tier} tier: {lr.shape[1]}x{lr.shape[0]} -> "
+                  f"{lr.shape[1] * 3}x{lr.shape[0] * 3} in {wall:.3f} s wall "
+                  f"= {hr_mpix / wall:.2f} HR MPix/s (launches: f32 trunk "
+                  f"{n32}, bf16 trunk {n16}, depth-to-space {nd}; {card})")
+            if ran < 1 or nd < 1:
+                fail(f"the {tier} CLI run launched a trunk kernel {ran} and "
+                     f"the depth-to-space kernel {nd} times")
+            launches["f32"] += n32
+            launches["bf16"] += n16
+            launches["d2s"] += nd
+            if tier == "fast":
+                fast_wall = wall
+            run_plain(argv + [out(f"{tier}_plain.png")], tier)
+            hk, hp = u8(out(f"{tier}_kernel.png")), u8(out(f"{tier}_plain.png"))
+            if hk.shape != (lr.shape[0] * 3, lr.shape[1] * 3, 3):
+                fail(f"CLI {tier} output has shape {hk.shape}")
+            worst, count = differ(hk, hp)
+            bound = 1 if tier == "exact" else 4
+            print(f"CLI {tier} PNG, kernels vs plain: max {worst} u8 codes "
+                  f"({count} values differ; bound {bound})")
+            if worst > bound:
+                fail(f"CLI {tier} output differs by {worst} u8 codes from "
+                     "the plain run")
+        he, hf = u8(out("exact_kernel.png")), u8(out("fast_kernel.png"))
+        db = imageio.psnr(hf / 255.0, he / 255.0)
+        worst, count = differ(hf, he)
+        print(f"CLI fast vs exact tier: {db:.2f} dB, max {worst} u8 codes "
+              f"({count} values differ; bounds 45 dB, 8)")
+        if not (db >= 45.0 and worst <= 8):
+            fail(f"fast tier vs exact: {db:.2f} dB, {worst} codes")
+
+        for mode, flags in (("bilinear", ["-p", "bilinear"]),
+                            ("downsample", ["-d"])):
+            zero_counts()
+            run_cli([*flags, src, out(f"{mode}_kernel.png")], mode)
+            n32, n16, nd = counts()
+            print(f"CLI {mode}: launches: depth-to-space {nd}")
+            if mode == "bilinear" and nd < 1:
+                fail("the bilinear CLI run launched no depth-to-space kernel")
+            launches["d2s"] += nd
+            run_plain([*flags, src, out(f"{mode}_plain.png")], mode)
+            run_cli(["--platform", "cpu", *flags, src,
+                     out(f"{mode}_cpu.png")], mode + " on the CPU")
+            hk = u8(out(f"{mode}_kernel.png"))
+            same = hk.tobytes() == u8(out(f"{mode}_plain.png")).tobytes()
+            worst, count = differ(hk, u8(out(f"{mode}_cpu.png")))
+            print(f"CLI {mode} PNG {hk.shape}: "
+                  f"{'byte-identical to' if same else 'DIFFERENT from'} the "
+                  f"plain run; vs the CPU max {worst} u8 codes ({count} "
+                  f"values differ)")
+            if not same or worst > 1 or count >= 1e-3 * hk.size:
+                fail(f"CLI {mode} output disagrees with its plain or CPU run")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     crop = img[:90, :130]
@@ -191,29 +320,42 @@ def main() -> int:
         fail(f"tiled path vs whole image: {err_whole} > {TOL}")
 
     # 5. Times at the main path's shapes, in turns.
-    def k():
-        return trunk.fused_trunk(packed3, main_x, main_m, 3)
+    times = {}
+    for dtype, pk in ((torch.float32, packed3),
+                      (torch.bfloat16, packed3_bf16)):
+        times[dtype] = time_in_turns(
+            lambda: trunk.fused_trunk_reference(pk, main_x, main_m, 3),
+            lambda: trunk.fused_trunk(pk, main_x, main_m, 3))
+        mode = "f32" if dtype == torch.float32 else "bf16"
+        print(f"{mode} trunk, 24 x 256^2 tiles: kernel {times[dtype][0]:.3f} "
+              f"ms, plain {times[dtype][1]:.3f} ms per call (CUDA events, "
+              f"2 x 10 calls each; {card})")
+    times["d2s"] = time_in_turns(
+        lambda: shuffle.depth_to_space_reference(main_expand, 3, main_base),
+        lambda: shuffle.depth_to_space_cuda(main_expand, 3,
+                                            addend=main_base))
+    print(f"depth-to-space(base + expand), (24, 242, 242, 27) f32: kernel "
+          f"{times['d2s'][0]:.3f} ms, plain {times['d2s'][1]:.3f} ms per "
+          f"call (CUDA events, 2 x 10 calls each; {card})")
+    print(f"CLI --fast: {fast_wall:.3f} s wall = {hr_mpix / fast_wall:.2f} "
+          f"HR MPix/s for {lr.shape[1]}x{lr.shape[0]} -> {lr.shape[1] * 3}x"
+          f"{lr.shape[0] * 3} (host clock; {card})")
 
-    def p():
-        return trunk.fused_trunk_reference(packed3, main_x, main_m, 3)
+    def row(name, source, replaces, count, err, timed):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": count,
+                "max_abs_err": err, "ms": timed[0], "plain_ms": timed[1]}
 
-    for fn in (p, k):
-        fn()
-        fn()
-    times = {"plain": [], "kernel": []}
-    for name, fn in (("plain", p), ("kernel", k), ("kernel", k),
-                     ("plain", p)):
-        times[name].append(cuda_time_ms(fn))
-    ms, plain_ms = (sum(times[n]) / 2 for n in ("kernel", "plain"))
-    print(f"trunk, 24 x 256^2 tiles: kernel {ms:.3f} ms, plain {plain_ms:.3f}"
-          f" ms per call (CUDA events, 2 x 10 calls each; {card})")
-
-    print(json.dumps({"kernels": [{
-        "name": "trunk", "route": "cuda",
-        "source": "rusty_sr_tpu_torch/csrc/trunk.cu",
-        "replaces": "rusty_sr_tpu/ops/pallas/trunk.py:134",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    trunk_src = "rusty_sr_tpu_torch/csrc/trunk.cu"
+    trunk_tpu = "rusty_sr_tpu/ops/pallas/trunk.py:134"
+    print(json.dumps({"kernels": [
+        row("trunk f32", trunk_src, trunk_tpu, launches["f32"],
+            max_err[torch.float32], times[torch.float32]),
+        row("trunk bf16", trunk_src, trunk_tpu, launches["bf16"],
+            max_err[torch.bfloat16], times[torch.bfloat16]),
+        row("depth_to_space", "rusty_sr_tpu_torch/csrc/shuffle.cu",
+            "rusty_sr_tpu/ops/pallas/shuffle.py:20", launches["d2s"], d2s_err,
+            times["d2s"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,6 +2,8 @@
 
 >>> import rusty_sr_tpu_torch
 >>> hr = rusty_sr_tpu_torch.upscale(img, weights="anime", device="cuda")
+>>> hr = rusty_sr_tpu_torch.upscale(img, weights="anime", fast=True)
+>>> lr = rusty_sr_tpu_torch.downscale(img)                  # gamma-correct
 """
 
 from __future__ import annotations
@@ -9,6 +11,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import numpy as np
+import torch
 
 from rusty_sr_tpu_torch import params as params_lib
 
@@ -22,14 +25,16 @@ def _resolve_params(weights: Union[str, dict], factor: int) -> dict:
 
 
 def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
-            factor: int = 3, *, engine: str = "fused", tile: int = 242,
-            chunk: Optional[int] = None, device="cuda") -> np.ndarray:
+            factor: int = 3, *, fast: bool = False, engine: str = "fused",
+            tile: int = 242, chunk: Optional[int] = None,
+            device="cuda") -> np.ndarray:
     """Upscale an (H,W,3) sRGB image by ``factor``; returns (fH,fW,3) f32.
 
     ``weights``: a builtin name ('imagenet', 'imagenetlinear', 'anime'),
     a path to a `.rsr` file, or a parameter tree.  ``engine``: 'fused',
-    the trunk kernel (the exact f32 tier).  ``device``: 'cuda' runs the
-    kernel on the card, 'cpu' its plain PyTorch version.
+    the trunk kernel.  ``fast`` runs its bf16 mode (the fast tier)
+    instead of the exact f32 tier.  ``device``: 'cuda' runs the kernels
+    on the card, 'cpu' their plain PyTorch versions.
 
     uint8 pixels are divided by 255; float input must already be finite
     sRGB in [0, 1], and anything else raises.
@@ -51,4 +56,27 @@ def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
                 f"[{image.min():.3g}, {image.max():.3g}]); pass uint8 "
                 "pixels directly or divide by 255")
     return tiled_sr(tree, image, factor, tile=tile, chunk=chunk,
-                    engine=engine, device=device)
+                    engine=engine, device=device,
+                    compute_dtype=torch.bfloat16 if fast else None)
+
+
+def upscale_bilinear(image: np.ndarray, factor: int = 3, *,
+                     device="cuda") -> np.ndarray:
+    """Gamma-correct bilinear upscale (the reference's ``-p bilinear``)
+    through the tile path.  uint8 in gives uint8 out; float in, float
+    out."""
+    from rusty_sr_tpu_torch.parallel.tiling import tiled_simple
+    return tiled_simple(np.asarray(image), factor, mode="bilinear",
+                        device=device)
+
+
+def downscale(image: np.ndarray, factor: int = 3, *,
+              device="cuda") -> np.ndarray:
+    """Gamma-correct fxf mean downsample (the reference's ``-d``) through
+    the tile path, after cropping the image to a multiple of ``factor``.
+    uint8 in gives uint8 out; float in, float out."""
+    from rusty_sr_tpu_torch.parallel.tiling import tiled_simple
+    img = np.asarray(image)
+    h, w, _ = img.shape
+    return tiled_simple(img[: h - h % factor, : w - w % factor], factor,
+                        mode="downsample", device=device)

@@ -1,10 +1,11 @@
 """Command-line interface: single-image upscale.
 
-The flags keep the names of `rusty_sr_tpu/cli.py`.  The path ported so
-far is the exact (f32) tier of the fused engine: a trunk kernel on the
-card (``--platform gpu``, the default) or its plain PyTorch version on
-the CPU (``--platform cpu``).  Flags and modes whose paths are not ported
-yet exit with code 2.
+The flags keep the names of `rusty_sr_tpu/cli.py`.  The paths ported so
+far are the fused engine in its exact (f32) tier and, with ``--fast``,
+its bf16 tier, and the ``-p bilinear`` and ``-d`` modes: the kernels on
+the card (``--platform gpu``, the default) or their plain PyTorch
+versions on the CPU (``--platform cpu``).  Flags and modes whose paths
+are not ported yet exit with code 2.
 """
 
 from __future__ import annotations
@@ -35,8 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="custom parameter file (.rsr) to use with the "
                         "neural net")
     p.add_argument("-d", "--downsample", action="store_true",
-                   help="perform downscaling rather than upscaling "
-                        "(not ported yet)")
+                   help="perform downscaling rather than upscaling")
     p.add_argument("-f", "--factor", type=int, default=3,
                    help="upscale factor (custom weights must match)")
     p.add_argument("--tile", type=int, default=242,
@@ -44,7 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk", type=int, default=None,
                    help="tiles per device dispatch (default 24)")
     p.add_argument("--fast", action="store_true",
-                   help="bf16 trunk (not ported yet)")
+                   help="the fast tier: the fused engine's trunk kernel in "
+                        "bf16 (f32 accumulation) instead of exact f32")
     p.add_argument("--engine", choices=["fused"], default="fused",
                    help="device engine: 'fused', the trunk as one CUDA "
                         "kernel")
@@ -58,12 +59,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _not_ported(args):
     """The first flag or mode the port cannot run yet, or None."""
-    if args.fast:
-        return "--fast"
-    if args.downsample:
-        return "-d/--downsample"
-    if args.parameters == "bilinear":
-        return "-p bilinear"
     if args.mesh:
         return "--mesh"
     if os.path.isdir(args.INPUT_FILE):
@@ -83,7 +78,35 @@ def device_for(platform: str):
     return torch.device("cuda")
 
 
+def _run_simple(args, img_u8, device) -> int:
+    """The non-neural modes, ``-d`` and ``-p bilinear``."""
+    from rusty_sr_tpu_torch.parallel.tiling import tiled_simple
+    from rusty_sr_tpu_torch.utils.imageio import save_image_u8
+
+    if args.downsample:
+        print("Downsampling using average pooling of linear RGB values...",
+              end="", flush=True)
+        f = args.factor
+        h, w, _ = img_u8.shape
+        out = tiled_simple(img_u8[: h - h % f, : w - w % f], f,
+                           mode="downsample", device=device)
+    else:
+        print("Upscaling using bilinear interpolation...", end="",
+              flush=True)
+        out = tiled_simple(img_u8, args.factor, mode="bilinear",
+                           device=device)
+    print(" Writing file...", end="", flush=True)
+    try:
+        save_image_u8(args.OUTPUT_FILE, out)
+    except OSError as e:
+        print(f"\nCould not write output file: {e}", file=sys.stderr)
+        return 1
+    print(" Done")
+    return 0
+
+
 def run_upscale(args) -> int:
+    import torch
     from rusty_sr_tpu_torch import params as params_lib
     from rusty_sr_tpu_torch.parallel.tiling import tiled_sr
     from rusty_sr_tpu_torch.utils.imageio import (
@@ -112,6 +135,8 @@ def run_upscale(args) -> int:
     except DECODE_ERRORS as e:
         print(f"Error opening input image file: {e}", file=sys.stderr)
         return 1
+    if args.downsample or args.parameters == "bilinear":
+        return _run_simple(args, img_u8, device)
 
     if args.custom:
         print("Upscaling using custom neural net parameters...", end="",
@@ -140,7 +165,8 @@ def run_upscale(args) -> int:
 
     img = img_u8.astype(np.float32) / 255.0
     out = tiled_sr(tree, img, args.factor, tile=args.tile, chunk=args.chunk,
-                   engine=args.engine, device=device)
+                   engine=args.engine, device=device,
+                   compute_dtype=torch.bfloat16 if args.fast else None)
     print(" Writing file...", end="", flush=True)
     try:
         save_image(args.OUTPUT_FILE, out)

@@ -1,11 +1,12 @@
 """Build `csrc/*.cu` with nvcc on first use and load it with ctypes.
 
 The library has a plain C interface (no PyTorch headers), so a build takes
-seconds.  It goes into ``rusty_sr_tpu_torch/_build/``, named by a hash of
-the sources and flags, under a file lock so that concurrent processes
-build it once; ``nvcc``'s own output (``-Xptxas -v``: registers, shared
-memory, spills) is kept beside it in a ``.log`` file.  A failed build
-raises: there is no fallback.
+seconds: one ``nvcc -c`` per source, all started together, then one link.
+It goes into ``rusty_sr_tpu_torch/_build/``, named by a hash of the
+sources and flags, under a file lock so that concurrent processes build
+it once; ``nvcc``'s own output (``-Xptxas -v``: registers, shared memory,
+spills) is kept beside it in a ``.log`` file.  A failed build raises:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # No --use_fast_math: the kernels' sqrtf must stay IEEE and denormals must
 # not flush.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
 _lib = None
@@ -39,7 +41,7 @@ def _sources() -> list:
 
 def library_path() -> str:
     """Path of the library for the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -60,6 +62,18 @@ def _nvcc() -> str:
                        "CUDA_HOME to build the port's kernels")
 
 
+def _run_all(cmds: list) -> list:
+    """Run the commands at once; (cmd, returncode, output) for each."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    results = []
+    for cmd, p in procs:
+        out, _ = p.communicate()
+        results.append((cmd, p.returncode, out))
+    return results
+
+
 def build() -> str:
     """Compile the sources unless the library for them exists; returns its
     path."""
@@ -72,21 +86,36 @@ def build() -> str:
         fcntl.flock(lk, fcntl.LOCK_EX)
         try:
             if not os.path.exists(so):
-                tmp = f"{so}.tmp.{os.getpid()}"
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                       *(s for s in _sources() if s.endswith(".cu"))]
-                r = subprocess.run(cmd, capture_output=True, text=True)
-                with open(so[:-3] + ".log", "w") as log:
-                    log.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-                if r.returncode != 0:
-                    if os.path.exists(tmp):
-                        os.unlink(tmp)
-                    raise RuntimeError(f"nvcc failed with code {r.returncode}:"
-                                       f"\n{r.stderr}")
-                os.replace(tmp, so)
+                _build_into(so)
         finally:
             fcntl.flock(lk, fcntl.LOCK_UN)
     return so
+
+
+def _build_into(so: str) -> None:
+    nvcc = _nvcc()
+    tag = f"{so[:-3]}.{os.getpid()}"
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{tag}.{os.path.basename(s)[:-3]}.o" for s in srcs]
+    tmp = f"{tag}.so.tmp"
+    try:
+        runs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                         for s, o in zip(srcs, objs)])
+        if all(rc == 0 for _, rc, _ in runs):
+            runs += _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
+        with open(so[:-3] + ".log", "w") as log:
+            for cmd, _, out in runs:
+                log.write(" ".join(cmd) + "\n" + out)
+        failed = [(cmd, rc, out) for cmd, rc, out in runs if rc != 0]
+        if failed:
+            cmd, rc, out = failed[0]
+            raise RuntimeError(f"nvcc failed with code {rc}: "
+                               f"{' '.join(cmd)}\n{out}")
+        os.replace(tmp, so)
+    finally:
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.unlink(path)
 
 
 def build_log() -> str:
@@ -105,8 +134,13 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.srt_trunk_f32.argtypes = [ptr] * 17 + [i32] * 5 + [ptr]
-            lib.srt_trunk_f32.restype = i32
+            for name in ("srt_trunk_f32", "srt_trunk_bf16"):
+                getattr(lib, name).argtypes = [ptr] * 17 + [i32] * 5 + [ptr]
+                getattr(lib, name).restype = i32
+            lib.srt_depth_to_space_f32.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+            lib.srt_depth_to_space_f32.restype = i32
+            lib.srt_depth_to_space_u8.argtypes = [ptr] * 2 + [i32] * 5 + [ptr]
+            lib.srt_depth_to_space_u8.restype = i32
             lib.srt_error_string.argtypes = [i32]
             lib.srt_error_string.restype = ctypes.c_char_p
             _lib = lib

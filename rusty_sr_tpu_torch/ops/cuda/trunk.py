@@ -1,11 +1,13 @@
 """The fused SR trunk: conv0 -> convA -> convB -> convC -> conv10 per
 halo'd tile, with bias, BeLU and the border mask between the stages.
 
-Counterpart of `rusty_sr_tpu/ops/pallas/trunk.py`.  `fused_trunk` runs
-the hand-written CUDA kernel `csrc/trunk.cu` on CUDA tensors and its
-plain PyTorch version `fused_trunk_reference` on CPU tensors; on any
-other device, or on a build or launch failure, it raises.  `LAUNCHES`
-counts the kernel's launches.
+Counterpart of `rusty_sr_tpu/ops/pallas/trunk.py`, in both of its modes:
+exact f32, and bf16 operands and activations with f32 accumulation (the
+fast tier).  `fused_trunk` runs the hand-written CUDA kernel
+`csrc/trunk.cu` on CUDA tensors and its plain PyTorch version
+`fused_trunk_reference` on CPU tensors; on any other device, or on a
+build or launch failure, it raises.  `LAUNCHES` counts the kernel's
+launches per mode.
 
 Layouts: tiles are NHWC, (B, S + 2*HALO, S + 2*HALO, C), zero-padded,
 with a (B, S + 2*HALO, S + 2*HALO, 1) {0,1} mask that is 1 inside the
@@ -28,24 +30,47 @@ from rusty_sr_tpu_torch.ops.conv import exact_f32
 
 HALO = 7   # trunk receptive-field radius in LR px
 
-# Launches of the CUDA kernel since the count was last set to 0.
-LAUNCHES = 0
+# Launches of the CUDA kernel, per mode, since the counts were last set
+# to 0.
+LAUNCHES = {torch.float32: 0, torch.bfloat16: 0}
 
-# The kernel reads weight rows as float4s, from rows padded to a multiple
-# of WPAD columns (csrc/trunk.cu); the trunk width must be one too.
+# The kernel reads weight rows in 16-byte pieces, from rows padded to a
+# multiple of WPAD columns (csrc/trunk.cu); the trunk width must be one
+# too.
 _WPAD = 8
 
+_MATS = ("w0", "wA", "wB", "wC", "wD")
 _VECS = ("f_bias", "f_belu", "l1_bias", "l1_belu", "l2_bias", "l2_belu",
          "l3_bias", "l3_belu", "expand_bias")
 
+# Kernel entry points by mode.
+_ENTRY = {torch.float32: "srt_trunk_f32", torch.bfloat16: "srt_trunk_bf16"}
 
-def pack_trunk_weights(params, factor: int = 3) -> dict:
-    """HWIO conv weights -> (kh*kw*Cin, Cout) float32 matrices, with
-    same-source convs merged along Cout (conv1|2|3 -> wA, conv5|6|7 -> wB,
-    conv8|9 -> wC), and the bias/BeLU vectors as (1, N).  Takes a raw or
-    a merged (`models.sr_net.merge_params`) tree of arrays or tensors;
-    the matrices stay on the tree's device."""
+
+def _padded(w: torch.Tensor) -> torch.Tensor:
+    """A (K, N) matrix with its columns zero-padded to a multiple of _WPAD,
+    starting on a 16-byte boundary (the kernel's 16-byte weight loads)."""
+    pad = -w.shape[1] % _WPAD
+    if pad:
+        return F.pad(w, (0, pad))
+    return w if w.data_ptr() % 16 == 0 else w.clone()
+
+
+def pack_trunk_weights(params, factor: int = 3,
+                       dtype: torch.dtype = torch.float32) -> dict:
+    """HWIO conv weights -> (kh*kw*Cin, Cout) matrices of ``dtype``
+    (float32 or bfloat16), with same-source convs merged along Cout
+    (conv1|2|3 -> wA, conv5|6|7 -> wB, conv8|9 -> wC), and the bias/BeLU
+    vectors as (1, N) float32 — the JAX packer's dict, bit for bit.
+
+    Each matrix also comes kernel-ready under ``"<name>_padded"``: its
+    columns zero-padded once here, so no launch copies weights.  Takes a
+    raw or a merged (`models.sr_net.merge_params`) tree of arrays or
+    tensors; the result stays on the tree's device."""
     from rusty_sr_tpu_torch.models.sr_net import merge_params
+
+    if dtype not in _ENTRY:
+        raise ValueError(f"dtype must be float32 or bfloat16, not {dtype}")
 
     def t(v):
         return torch.as_tensor(v, dtype=torch.float32)
@@ -63,13 +88,15 @@ def pack_trunk_weights(params, factor: int = 3) -> dict:
             "for this factor")
 
     def flat(w):
-        return w.reshape(-1, w.shape[-1]).contiguous()
+        return w.reshape(-1, w.shape[-1]).to(dtype).contiguous()
 
     out = {"w0": flat(p["conv0"]), "wA": flat(p["convA"]),
            "wB": flat(p["convB"]), "wC": flat(p["convC"]),
            "wD": flat(p["conv10"])}
     for k in _VECS:
         out[k] = p[k].reshape(1, -1).contiguous()
+    for k in _MATS:
+        out[k + "_padded"] = _padded(out[k])
     return out
 
 
@@ -80,56 +107,76 @@ def _conv_valid(t: torch.Tensor, w_kn: torch.Tensor, k: int) -> torch.Tensor:
     return F.conv2d(t, w)
 
 
+def _mode(packed, compute_dtype) -> torch.dtype:
+    cd = compute_dtype or packed["w0"].dtype
+    if cd not in _ENTRY:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                         f"not {cd}")
+    return cd
+
+
 def fused_trunk_reference(packed, x: torch.Tensor, mask: torch.Tensor,
-                          factor: int = 3) -> torch.Tensor:
+                          factor: int = 3,
+                          compute_dtype: torch.dtype | None = None
+                          ) -> torch.Tensor:
     """Plain PyTorch `expand` for zero-padded tiles: the kernel's math on
-    whole tiles, in full float32 (TF32 off)."""
+    whole tiles.  ``compute_dtype`` defaults to the packed matrices'.
+
+    float32: full float32 throughout (TF32 off).  bfloat16: the values
+    are rounded to bf16 exactly where the Pallas kernel rounds them — x,
+    the weights, each activation after its BeLU, each stage output a, b,
+    c after its own BeLU has read it in f32 — and every convolution sums
+    exact products of those values in f32.  The convolutions run on f32
+    tensors that hold bf16 values: a bf16 `conv2d` would round each stage
+    output before its BeLU, where the Pallas kernel does not."""
+    cd = _mode(packed, compute_dtype)
     n = packed["f_bias"].shape[-1]
     e = x.shape[-1] * factor * factor
+
+    def rnd(t):
+        return t if cd == torch.float32 else t.to(cd).float()
 
     def v(name):
         return packed[name].reshape(1, -1, 1, 1)
 
-    xt = x.permute(0, 3, 1, 2)
+    def w(name):
+        return rnd(packed[name].float())
+
+    xt = rnd(x.permute(0, 3, 1, 2))
     mt = mask.permute(0, 3, 1, 2)
 
     def act(pre, name, off):
         hh, ww = mt.shape[2], mt.shape[3]
         m = mt[:, :, off:hh - off, off:ww - off]
-        return belu(pre + v(name + "_bias"), v(name + "_belu")) * m
+        return rnd(belu(pre + v(name + "_bias"), v(name + "_belu"))) * m
 
     def inner(t, k):
         return t[:, :, k:t.shape[2] - k, k:t.shape[3] - k]
 
     with exact_f32():
-        f = act(_conv_valid(xt, packed["w0"], 5), "f", 2)
-        a = _conv_valid(f, packed["wA"], 5)
+        f = act(_conv_valid(xt, w("w0"), 5), "f", 2)
+        a = _conv_valid(f, w("wA"), 5)
         l1 = act(a[:, :n], "l1", 4)
-        b = _conv_valid(l1, packed["wB"], 3)
+        a = rnd(a)
+        b = _conv_valid(l1, w("wB"), 3)
         l2 = act(inner(a[:, n:2 * n], 1) + b[:, :n], "l2", 5)
-        c = _conv_valid(l2, packed["wC"], 3)
+        b = rnd(b)
+        c = _conv_valid(l2, w("wC"), 3)
         l3 = act(inner(a[:, 2 * n:3 * n], 2) + inner(b[:, n:2 * n], 1)
                  + c[:, :n], "l3", 6)
-        d = _conv_valid(l3, packed["wD"], 3)
+        c = rnd(c)
+        d = _conv_valid(l3, w("wD"), 3)
         expand = (inner(b[:, 2 * n:2 * n + e], 2) + inner(c[:, n:n + e], 1)
                   + d + v("expand_bias"))
     return expand.permute(0, 2, 3, 1).contiguous()
 
 
-def _padded(w: torch.Tensor) -> torch.Tensor:
-    """A (K, N) matrix with its columns zero-padded to a multiple of _WPAD,
-    starting on a 16-byte boundary (the kernel's float4 loads)."""
-    pad = -w.shape[1] % _WPAD
-    if pad:
-        return F.pad(w, (0, pad))
-    return w if w.data_ptr() % 16 == 0 else w.clone()
-
-
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
+def _check(name: str, t: torch.Tensor, shape, device,
+           dtype=torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
@@ -138,17 +185,23 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 
 
 def fused_trunk(packed, x: torch.Tensor, mask: torch.Tensor,
-                factor: int = 3) -> torch.Tensor:
-    """`expand` (B, S, S, C*f^2) for zero-padded tiles x (B, S+14, S+14, C)
-    and their mask (B, S+14, S+14, 1), all float32.
+                factor: int = 3,
+                compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """`expand` (B, S, S, C*f^2) float32 for zero-padded float32 tiles x
+    (B, S+14, S+14, C) and their mask (B, S+14, S+14, 1).
 
-    CPU tensors take `fused_trunk_reference`; CUDA tensors launch the
-    kernel on the current stream (no synchronisation)."""
-    global LAUNCHES
+    The mode is the packed matrices' dtype (`pack_trunk_weights`);
+    ``compute_dtype``, if given, must name the same.  CPU tensors take
+    `fused_trunk_reference`; CUDA tensors launch the kernel on the
+    current stream (no synchronisation)."""
+    cd = _mode(packed, compute_dtype)
     if x.device.type == "cpu":
-        return fused_trunk_reference(packed, x, mask, factor)
+        return fused_trunk_reference(packed, x, mask, factor, cd)
     if x.device.type != "cuda":
         raise ValueError(f"fused_trunk runs on cpu or cuda, not {x.device}")
+    if cd != packed["w0"].dtype:
+        raise ValueError(f"compute_dtype {cd} needs weights packed as {cd}, "
+                         f"not {packed['w0'].dtype}")
     if x.dim() != 4 or x.shape[1] != x.shape[2]:
         raise ValueError(f"x must be (B, side, side, C), got {tuple(x.shape)}")
     bsz, side, _, cin = x.shape
@@ -164,10 +217,16 @@ def fused_trunk(packed, x: torch.Tensor, mask: torch.Tensor,
     dev = x.device
     _check("x", x, (bsz, side, side, cin), dev)
     _check("mask", mask, (bsz, side, side, 1), dev)
-    for name, shape in (("w0", (25 * cin, n)), ("wA", (25 * n, 3 * n)),
-                        ("wB", (9 * n, 2 * n + e)), ("wC", (9 * n, n + e)),
-                        ("wD", (9 * n, e))):
-        _check(name, packed[name], shape, dev)
+    for name, k, cols in (("w0", 25 * cin, n), ("wA", 25 * n, 3 * n),
+                          ("wB", 9 * n, 2 * n + e), ("wC", 9 * n, n + e),
+                          ("wD", 9 * n, e)):
+        _check(name, packed[name], (k, cols), dev, cd)
+        wp = packed[name + "_padded"]
+        _check(name + "_padded", wp, (k, -(-cols // _WPAD) * _WPAD), dev,
+               cd)
+        if wp.data_ptr() % 16:
+            raise ValueError(f"{name}_padded does not start on a 16-byte "
+                             "boundary")
     for name in _VECS:
         _check(name, packed[name], (1, e if name == "expand_bias" else n),
                dev)
@@ -176,15 +235,15 @@ def fused_trunk(packed, x: torch.Tensor, mask: torch.Tensor,
         return out
     from rusty_sr_tpu_torch.ops.cuda import _build
     lib = _build.load()
-    mats = [_padded(packed[k]) for k in ("w0", "wA", "wB", "wC", "wD")]
     ptrs = [t.data_ptr() for t in
-            (x, mask, *mats, *(packed[k] for k in _VECS), out)]
+            (x, mask, *(packed[k + "_padded"] for k in _MATS),
+             *(packed[k] for k in _VECS), out)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.srt_trunk_f32(*ptrs, bsz, s, cin, n, e,
-                               ctypes.c_void_p(stream))
+        rc = getattr(lib, _ENTRY[cd])(*ptrs, bsz, s, cin, n, e,
+                                      ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("trunk kernel launch failed: "
                            f"{lib.srt_error_string(rc).decode()} ({rc})")
-    LAUNCHES += 1
+    LAUNCHES[cd] += 1
     return out

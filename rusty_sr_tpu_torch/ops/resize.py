@@ -1,4 +1,5 @@
-"""Bilinear xf upsample (alumina `LinearInterp`), NHWC.
+"""Bilinear xf upsample (alumina `LinearInterp`) and the fxf mean pool,
+NHWC.
 
 Half-pixel phase — output index ``f*y + fy`` samples input coordinate
 ``y + alpha``, ``alpha = (fy + 0.5)/f - 0.5`` — and edge clamping.  Each
@@ -83,3 +84,17 @@ def bilinear_phases_cropped(x: torch.Tensor, factor: int,
         for lo_c, hi_c, wc in _phase_taps_padded(xr, f, 2, size):
             blocks.append(_lerp(lo_c, hi_c, wc))
     return torch.cat(blocks, dim=-1)
+
+
+def avg_pool(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """x: (N,H,W,C) -> (N,H//f,W//f,C) mean pool, stride f, valid padding:
+    the f*f window summed in row-major order from 0, then divided by
+    float(f*f), as the JAX op's `reduce_window` computes it."""
+    f = factor
+    n, hgt, wid, c = x.shape
+    ho, wo = hgt // f, wid // f
+    acc = torch.zeros((n, ho, wo, c), dtype=x.dtype, device=x.device)
+    for dy in range(f):
+        for dx in range(f):
+            acc = acc + x[:, dy:dy + f * ho:f, dx:dx + f * wo:f, :]
+    return acc / float(f * f)

@@ -2,7 +2,8 @@
 
 Tolerance 1e-6 absolute for the float ops: both sides run the same f32
 arithmetic, except the convolution, whose sums run in another order
-(values here are O(1), so f32 rounding of the order is ~1e-7).  Pixel
+(values here are O(1), so f32 rounding of the order is ~1e-7), and the
+sRGB curves, whose pow may differ by an ulp between XLA and torch.  Pixel
 codecs and the tile gather must agree exactly.
 """
 
@@ -16,18 +17,22 @@ import torch
 from PIL import Image
 
 from rusty_sr_tpu.ops.activations import belu as j_belu
+from rusty_sr_tpu.ops.color import (linear_to_srgb as j_lin2srgb,
+                                    srgb_to_linear as j_srgb2lin)
 from rusty_sr_tpu.ops.conv import conv2d_same as j_conv
 from rusty_sr_tpu.ops.pixel_shuffle import (depth_to_space as j_d2s,
                                             space_to_depth as j_s2d)
-from rusty_sr_tpu.ops.resize import (bilinear_phases as j_phases,
+from rusty_sr_tpu.ops.resize import (avg_pool as j_avg_pool,
+                                     bilinear_phases as j_phases,
                                      bilinear_phases_cropped as j_cropped,
                                      upsample_bilinear as j_up)
 from rusty_sr_tpu.utils import imageio as j_io
 from rusty_sr_tpu.utils import native as j_native
 from rusty_sr_tpu_torch.ops.activations import belu
+from rusty_sr_tpu_torch.ops.color import linear_to_srgb, srgb_to_linear
 from rusty_sr_tpu_torch.ops.conv import conv2d_same
 from rusty_sr_tpu_torch.ops.pixel_shuffle import depth_to_space, space_to_depth
-from rusty_sr_tpu_torch.ops.resize import (bilinear_phases,
+from rusty_sr_tpu_torch.ops.resize import (avg_pool, bilinear_phases,
                                            bilinear_phases_cropped,
                                            upsample_bilinear)
 from rusty_sr_tpu_torch.utils import imageio, native
@@ -50,6 +55,32 @@ def test_belu_matches_jax():
     x = r.normal(0, 3, (2, 5, 7, 32)).astype(np.float32)
     p = r.normal(0, 1, (32,)).astype(np.float32)
     got, want = both(belu, j_belu, x, p)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("fn,j_fn", [(srgb_to_linear, j_srgb2lin),
+                                     (linear_to_srgb, j_lin2srgb)],
+                         ids=["srgb_to_linear", "linear_to_srgb"])
+def test_srgb_curves_match_jax(fn, j_fn):
+    """Both branches, the knee and the clamp below 0 (the clamped base
+    keeps the unselected pow branch finite)."""
+    x = np.concatenate([rng(13).random(4995, dtype=np.float32),
+                        np.array([0.0, 0.0031308, 0.04045, 1.0, -0.01],
+                                 np.float32)]).reshape(1, 5, 1000, 1)
+    got, want = both(fn, j_fn, x)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("factor,shape", [(3, (2, 9, 12, 3)),
+                                          (2, (1, 7, 5, 3)),
+                                          (4, (1, 8, 17, 3))],
+                         ids=["f3", "f2-ragged", "f4-ragged"])
+def test_avg_pool_matches_jax(factor, shape):
+    x = rng(14).random(shape, dtype=np.float32)
+    got, want = both(avg_pool, j_avg_pool, x, factor=factor)
+    assert got.shape == (shape[0], shape[1] // factor, shape[2] // factor,
+                         shape[3])
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
