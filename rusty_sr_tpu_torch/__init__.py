@@ -3,11 +3,14 @@
 A second package beside the JAX one, for one NVIDIA Hopper GPU.  It
 imports neither JAX nor `rusty_sr_tpu`; it reads the same `.rsr` weight
 files and keeps the JAX package's NHWC / HWIO layouts at its public
-functions.  Ported so far: the single-image upscale through the fused
-engine, in its exact (f32) and fast (bf16) tiers, whose trunk is the
-hand-written CUDA kernel `csrc/trunk.cu` and whose output passes through
-the depth-to-space kernel `csrc/shuffle.cu`; and the bilinear and
-downsample modes.
+functions.  Ported so far: the single-image upscale through both
+engines of the JAX package — xla (the default: u8 tiles in and out, the
+trunk as conv stages; its bf16 convs on the hand-written conv-stage
+kernel `csrc/conv_stage.cu` and its output through the epilogue in
+`csrc/shuffle.cu`) and fused (the trunk as the hand-written kernel
+`csrc/trunk.cu`, its output through the depth-to-space kernel) — in the
+exact (f32) and fast (bf16) tiers; and the bilinear and downsample
+modes.
 """
 
 __version__ = "0.1.0"

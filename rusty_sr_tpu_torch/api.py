@@ -1,8 +1,8 @@
 """High-level Python API.
 
 >>> import rusty_sr_tpu_torch
->>> hr = rusty_sr_tpu_torch.upscale(img, weights="anime", device="cuda")
->>> hr = rusty_sr_tpu_torch.upscale(img, weights="anime", fast=True)
+>>> hr = rusty_sr_tpu_torch.upscale(img_u8, weights="anime")  # uint8 out
+>>> hr = rusty_sr_tpu_torch.upscale(img_u8, weights="anime", fast=True)
 >>> lr = rusty_sr_tpu_torch.downscale(img)                  # gamma-correct
 """
 
@@ -25,26 +25,30 @@ def _resolve_params(weights: Union[str, dict], factor: int) -> dict:
 
 
 def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
-            factor: int = 3, *, fast: bool = False, engine: str = "fused",
+            factor: int = 3, *, fast: bool = False, engine: str = "xla",
             tile: int = 242, chunk: Optional[int] = None,
             device="cuda") -> np.ndarray:
-    """Upscale an (H,W,3) sRGB image by ``factor``; returns (fH,fW,3) f32.
+    """Upscale an (H,W,3) sRGB image by ``factor``.
 
     ``weights``: a builtin name ('imagenet', 'imagenetlinear', 'anime'),
-    a path to a `.rsr` file, or a parameter tree.  ``engine``: 'fused',
-    the trunk kernel.  ``fast`` runs its bf16 mode (the fast tier)
-    instead of the exact f32 tier.  ``device``: 'cuda' runs the kernels
-    on the card, 'cpu' their plain PyTorch versions.
+    a path to a `.rsr` file, or a parameter tree.  ``engine``: 'xla' (the
+    default; the trunk as conv stages, the u8 path) or 'fused' (the trunk
+    as one kernel).  ``fast`` runs the bf16 tier instead of the exact f32
+    tier.  ``device``: 'cuda' runs the kernels on the card, 'cpu' their
+    plain PyTorch versions.
 
-    uint8 pixels are divided by 255; float input must already be finite
-    sRGB in [0, 1], and anything else raises.
+    On the xla engine a uint8 image stays uint8 end to end and the result
+    is uint8; elsewhere uint8 pixels are divided by 255 and the result is
+    float32.  Float input must already be finite sRGB in [0, 1], and
+    anything else raises.
     """
     from rusty_sr_tpu_torch.parallel.tiling import tiled_sr
 
     tree = _resolve_params(weights, factor)
     image = np.asarray(image)
     if image.dtype == np.uint8:
-        image = image.astype(np.float32) / 255.0
+        if engine != "xla":
+            image = image.astype(np.float32) / 255.0
     else:
         image = np.asarray(image, np.float32)
         # NaN fails both sides of a range check, so finiteness is explicit.

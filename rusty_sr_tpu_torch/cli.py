@@ -1,11 +1,12 @@
 """Command-line interface: single-image upscale.
 
 The flags keep the names of `rusty_sr_tpu/cli.py`.  The paths ported so
-far are the fused engine in its exact (f32) tier and, with ``--fast``,
-its bf16 tier, and the ``-p bilinear`` and ``-d`` modes: the kernels on
-the card (``--platform gpu``, the default) or their plain PyTorch
-versions on the CPU (``--platform cpu``).  Flags and modes whose paths
-are not ported yet exit with code 2.
+far are both engines — xla (the default: u8 tiles in, u8 HR tiles out)
+and fused — in the exact (f32) tier and, with ``--fast``, the bf16 tier,
+and the ``-p bilinear`` and ``-d`` modes: the kernels on the card
+(``--platform gpu``, the default) or their plain PyTorch versions on the
+CPU (``--platform cpu``).  Flags and modes whose paths are not ported yet
+exit with code 2.
 """
 
 from __future__ import annotations
@@ -44,11 +45,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk", type=int, default=None,
                    help="tiles per device dispatch (default 24)")
     p.add_argument("--fast", action="store_true",
-                   help="the fast tier: the fused engine's trunk kernel in "
-                        "bf16 (f32 accumulation) instead of exact f32")
-    p.add_argument("--engine", choices=["fused"], default="fused",
-                   help="device engine: 'fused', the trunk as one CUDA "
-                        "kernel")
+                   help="the fast tier: the trunk in bf16 with f32 "
+                        "accumulation instead of exact f32 (at least 45 dB "
+                        "and at most 8 u8 codes from the exact tier)")
+    p.add_argument("--engine", choices=["xla", "fused"], default="xla",
+                   help="device engine: 'xla' (default), the trunk as conv "
+                        "stages with u8 tiles in and out; 'fused', the "
+                        "trunk as one CUDA kernel")
     p.add_argument("--mesh", metavar="SPEC", default=None,
                    help="shard tiles over several devices (not ported yet)")
     p.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
@@ -64,6 +67,14 @@ def _not_ported(args):
     if os.path.isdir(args.INPUT_FILE):
         return "a folder input"
     return None
+
+
+def _fast_tier_tip(args) -> None:
+    """One stderr line pointing exact-tier users of the default engine at
+    ``--fast``."""
+    if not args.fast and args.engine == "xla":
+        print("tip: running the exact tier; --fast runs the bf16 tier, "
+              "within 8 u8 codes and at least 45 dB of it", file=sys.stderr)
 
 
 def device_for(platform: str):
@@ -110,7 +121,7 @@ def run_upscale(args) -> int:
     from rusty_sr_tpu_torch import params as params_lib
     from rusty_sr_tpu_torch.parallel.tiling import tiled_sr
     from rusty_sr_tpu_torch.utils.imageio import (
-        DECODE_ERRORS, check_codec, load_image_u8, save_image)
+        DECODE_ERRORS, check_codec, load_image_u8, save_image, save_image_u8)
 
     if args.custom and args.parameters:
         print("error: --custom conflicts with --parameters", file=sys.stderr)
@@ -138,6 +149,7 @@ def run_upscale(args) -> int:
     if args.downsample or args.parameters == "bilinear":
         return _run_simple(args, img_u8, device)
 
+    _fast_tier_tip(args)
     if args.custom:
         print("Upscaling using custom neural net parameters...", end="",
               flush=True)
@@ -163,13 +175,19 @@ def run_upscale(args) -> int:
               "is used for upscaling and training.", file=sys.stderr)
         return 1
 
-    img = img_u8.astype(np.float32) / 255.0
+    # The xla engine takes the u8 pixels as they are and returns u8 HR
+    # pixels; the fused engine runs on f32 in [0, 1].
+    img = img_u8 if args.engine == "xla" else \
+        img_u8.astype(np.float32) / 255.0
     out = tiled_sr(tree, img, args.factor, tile=args.tile, chunk=args.chunk,
                    engine=args.engine, device=device,
                    compute_dtype=torch.bfloat16 if args.fast else None)
     print(" Writing file...", end="", flush=True)
     try:
-        save_image(args.OUTPUT_FILE, out)
+        if out.dtype == np.uint8:
+            save_image_u8(args.OUTPUT_FILE, out)
+        else:
+            save_image(args.OUTPUT_FILE, out)
     except OSError as e:
         print(f"\nCould not write output file: {e}", file=sys.stderr)
         return 1

@@ -32,6 +32,23 @@ def exact_f32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def bf16_split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 -> (hi, lo) bfloat16 with v ~= hi + lo: hi is v rounded to
+    nearest-even bf16, done in integer bits (+0x7FFF plus the tie bit,
+    then the low 16 bits cleared), and lo is the rounded residual, so
+    |lo| <= 2^-9 |v|.  Bit for bit the JAX package's `ops.conv.bf16_split`
+    (which uses bits because XLA may fold a convert pair away).  Finite
+    inputs only: the carry would corrupt Inf and NaN payloads.
+
+    The int32 view stands in for uint32: bit 16 survives the arithmetic
+    shift, and no finite value carries past bit 31."""
+    v = v.to(torch.float32).contiguous()
+    bits = v.view(torch.int32)
+    rnd = bits + 0x7FFF + ((bits >> 16) & 1)
+    hi_f = (rnd & -0x10000).view(torch.float32)
+    return hi_f.to(torch.bfloat16), (v - hi_f).to(torch.bfloat16)
+
+
 def conv2d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (N,H,W,Cin); w: (kh,kw,Cin,Cout) HWIO. Stride 1, zero-pad Same."""
     kh, kw = w.shape[0], w.shape[1]

@@ -141,6 +141,12 @@ def load() -> ctypes.CDLL:
             lib.srt_depth_to_space_f32.restype = i32
             lib.srt_depth_to_space_u8.argtypes = [ptr] * 2 + [i32] * 5 + [ptr]
             lib.srt_depth_to_space_u8.restype = i32
+            lib.srt_epilogue.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
+            lib.srt_epilogue.restype = i32
+            lib.srt_epilogue_packed.argtypes = [ptr] * 2 + [i32] * 7 + [ptr]
+            lib.srt_epilogue_packed.restype = i32
+            lib.srt_conv_stage.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
+            lib.srt_conv_stage.restype = i32
             lib.srt_error_string.argtypes = [i32]
             lib.srt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,8 +1,10 @@
 """Overlap-tile inference: any image size through fixed-shape tile chunks.
 
-The contract of `rusty_sr_tpu/parallel/tiling.py::tiled_sr` with
-``engine="fused"``, in the exact (f32) and fast (bf16) tiers, and of its
-`tiled_simple`, the bilinear and downsample modes:
+The contract of `rusty_sr_tpu/parallel/tiling.py::tiled_sr` with its two
+engines — "xla" (the default: the merged-conv trunk as separate conv
+stages) and "fused" (the trunk as one kernel) — in the exact (f32) and
+fast (bf16) tiers, and of its `tiled_simple`, the bilinear and downsample
+modes:
 
 - The image is cut into ``tile``-sided tiles, each with a HALO-px ring
   (the trunk's receptive-field radius, 7 LR px), gathered on the host
@@ -10,6 +12,9 @@ The contract of `rusty_sr_tpu/parallel/tiling.py::tiled_sr` with
   base's input, reproducing its clamp at the true border) and a {0,1}
   border mask.  The trunk multiplies every activation by the mask, so a
   tile's result equals the whole-image computation.
+- uint8 images stay uint8 from the gather to the output on the xla
+  engine: the tiles go to the device as u8 and come back as u8 HR tiles,
+  quantised by the epilogue kernel.
 - Tiles run in chunks of a fixed size (the last chunk padded), and at
   most ``_MAX_INFLIGHT`` chunks are queued on the device before the
   oldest is fetched and scattered.
@@ -23,15 +28,22 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rusty_sr_tpu_torch.ops.activations import belu
 from rusty_sr_tpu_torch.ops.color import linear_to_srgb, srgb_to_linear
-from rusty_sr_tpu_torch.ops.cuda.shuffle import depth_to_space_cuda
+from rusty_sr_tpu_torch.ops.conv import bf16_split, conv2d_same
+from rusty_sr_tpu_torch.ops.cuda.conv_stage import conv_stage
+from rusty_sr_tpu_torch.ops.cuda.shuffle import (depth_to_space_cuda,
+                                                 epilogue_cuda, quantise_u8)
 from rusty_sr_tpu_torch.ops.cuda.trunk import fused_trunk, pack_trunk_weights
 from rusty_sr_tpu_torch.ops.resize import avg_pool, bilinear_phases_cropped
 from rusty_sr_tpu_torch.utils import native
 
 HALO = 7
 
-_DEFAULT_CHUNK = 24     # tiles per dispatch
+# Tiles per dispatch.  The JAX package picks the packed tier's chunk from
+# a ladder measured on a TPU (`_pick_chunk`); those times do not carry
+# over, so every tier here takes this fixed chunk.
+_DEFAULT_CHUNK = 24
 
 # Dispatched-but-unfetched chunks per call: each parked chunk holds its
 # input and HR output on the device, so the window bounds device memory
@@ -64,68 +76,378 @@ def _tile_kernel_fused(packed, zero_tiles, edge_tiles, mask_tiles,
     return depth_to_space_cuda(expand, factor, addend=base_ph)
 
 
+# --- The xla engine's weights: 2x2 space-to-depth packing (numpy) ---
+
+def _s2d_maps_k(k: int):
+    """Index maps of an odd k x k Same conv on the 2x2 space-to-depth
+    grid: 3x3 packed taps, u = 2*ap + by - fy + (c - 2) with
+    c = (k - 1) // 2, clamped into the kernel, and a mask of the taps
+    that exist.  Returns (uu, vv, ok), each (3, 3, 4, 4)."""
+    c = (k - 1) // 2
+    uu = np.zeros((3, 3, 4, 4), np.int32)
+    vv = np.zeros_like(uu)
+    ok = np.zeros(uu.shape, np.float32)
+    for ap in range(3):
+        for bp in range(3):
+            for by in range(2):
+                for bx in range(2):
+                    for fy in range(2):
+                        for fx in range(2):
+                            g, ff = by * 2 + bx, fy * 2 + fx
+                            u = 2 * ap + by - fy + (c - 2)
+                            v = 2 * bp + bx - fx + (c - 2)
+                            uu[ap, bp, g, ff] = min(max(u, 0), k - 1)
+                            vv[ap, bp, g, ff] = min(max(v, 0), k - 1)
+                            ok[ap, bp, g, ff] = float(
+                                0 <= u < k and 0 <= v < k)
+    return uu, vv, ok
+
+
+def _s2d_conv_weights(w: np.ndarray, blocks) -> np.ndarray:
+    """(k, k, ci, co) -> (3, 3, 4ci, 4co) space-to-depth packed weights
+    with block-major output channels: for sub-block b (widths ``blocks``,
+    summing to co) the packed channel is 4*offset_b + ff*width_b + c_b,
+    so every merged-stage slice is one channel range in packed space and
+    per-channel vectors tile as np.tile(p, 4)."""
+    w = np.asarray(w, np.float32)
+    k, _, ci, co = w.shape
+    if sum(blocks) != co:
+        raise ValueError(f"blocks {list(blocks)} do not sum to {co}")
+    uu, vv, ok = _s2d_maps_k(k)
+    wg = w[uu, vv] * ok[..., None, None]          # (3,3,4g,4f,ci,co)
+    wflat = wg.transpose(0, 1, 2, 4, 3, 5).reshape(3, 3, 4 * ci, 4 * co)
+    perm = np.empty(4 * co, np.int64)
+    off = 0
+    for wb in blocks:
+        for ff in range(4):
+            for cb in range(wb):
+                perm[4 * off + ff * wb + cb] = ff * co + off + cb
+        off += wb
+    return np.ascontiguousarray(wflat[..., perm])
+
+
+def _conv0_s2d_weights(w0: np.ndarray) -> np.ndarray:
+    """(5, 5, 3, n) conv0 -> (3, 3, 12, 4n) on the 2x2 space-to-depth
+    grid (`_s2d_conv_weights` with one block)."""
+    return _s2d_conv_weights(w0, [np.shape(w0)[3]])
+
+
+def _base_conv_weights(f: int, C: int = 3) -> np.ndarray:
+    """(3, 3, C, f*f*C): the half-pixel bilinear xf upsample as a Same
+    conv at LR (the phase taps span under 1 px for every factor), output
+    channel (fy*f + fx)*C + c in the expand/depth-to-space order."""
+    wr = np.zeros((f, 3), np.float64)
+    for i in range(f):
+        c0 = (i + 0.5) / f - 0.5
+        lo = int(np.floor(c0))
+        frac = c0 - lo
+        wr[i, lo + 1] += 1.0 - frac
+        wr[i, lo + 2] += frac
+    W = np.zeros((3, 3, C, f * f * C), np.float32)
+    for fy in range(f):
+        for fx in range(f):
+            for dy in range(3):
+                for dx in range(3):
+                    for c in range(C):
+                        W[dy, dx, c, (fy * f + fx) * C + c] = \
+                            wr[fy, dy] * wr[fx, dx]
+    return W
+
+
+_VECS = ("f_bias", "f_belu", "l1_bias", "l1_belu", "l2_bias", "l2_belu",
+         "l3_bias", "l3_belu", "expand_bias")
+
+
+def _np_tree(params) -> dict:
+    return {k: np.asarray(torch.as_tensor(v, dtype=torch.float32))
+            for k, v in trunk_params(params).items()}
+
+
+def packed_trunk_params(params, factor: int = 3) -> dict:
+    """Weights of `_tile_kernel_packed`, bit for bit the JAX package's
+    `packed_trunk_params` with bf16: W0 (3,3,24,4n), the u8-exact conv0
+    (256/255 folded in) as a two-term bf16 split over duplicated input
+    channels; WA (3,3,4n,12n), WB (3,3,4n,8n+4e), WC (3,3,4n,4n+4e) in
+    bf16; WD (3,3,4n+24,4e), conv10 in bf16 plus the bilinear base as the
+    two-term split of its conv weights; and each bias and BeLU vector
+    tiled 4x, float32.  CPU tensors."""
+    p = _np_tree(params)
+    n = p["f_bias"].shape[0]
+    e = p["expand_bias"].shape[0]
+    bf = torch.bfloat16
+    w0_hi, w0_lo = bf16_split(torch.from_numpy(
+        _conv0_s2d_weights(p["conv0"] * (256.0 / 255.0))))
+    wd = torch.from_numpy(_s2d_conv_weights(p["conv10"], [e])).to(bf)
+    wb_hi, wb_lo = bf16_split(torch.from_numpy(_s2d_conv_weights(
+        _base_conv_weights(factor) * (256.0 / 255.0), [e])))
+    out = {
+        "W0": torch.cat([w0_hi, w0_lo], dim=2),
+        "WA": torch.from_numpy(_s2d_conv_weights(p["convA"], [n, n, n]))
+        .to(bf),
+        "WB": torch.from_numpy(_s2d_conv_weights(p["convB"], [n, n, e]))
+        .to(bf),
+        "WC": torch.from_numpy(_s2d_conv_weights(p["convC"], [n, e])).to(bf),
+        "WD": torch.cat([wd, wb_hi, wb_lo], dim=2),
+    }
+    for k in _VECS:
+        out[k] = torch.from_numpy(np.tile(p[k], 4))
+    return out
+
+
+def flat_trunk_params(params, fast: bool) -> dict:
+    """Weights of `_tile_kernel`: the merged-conv tree in float32, and for
+    the fast tier (``fast``) each stage's bf16 weights beside it — convA,
+    convB, convC, conv10 rounded, and conv0 as the JAX package's split
+    forms: ``conv0_u8`` (the u8-exact input, 256/255 folded in, two-term
+    weight split over duplicated input channels, Cin 6) and ``conv0_f32``
+    (three-term split hi*w_hi + hi*w_lo + lo*w_hi, Cin 9).  CPU tensors."""
+    p = {k: torch.from_numpy(v) for k, v in _np_tree(params).items()}
+    if fast:
+        u_hi, u_lo = bf16_split(p["conv0"] * (256.0 / 255.0))
+        w_hi, w_lo = bf16_split(p["conv0"])
+        p["conv0_u8"] = torch.cat([u_hi, u_lo], dim=2)
+        p["conv0_f32"] = torch.cat([w_hi, w_lo, w_hi], dim=2)
+        for k in ("convA", "convB", "convC", "conv10"):
+            p[k + "_bf16"] = p[k].to(torch.bfloat16)
+    return p
+
+
+# --- The xla engine's tile kernels ---
+
+def _tile_kernel(params, zero_tiles, edge_tiles, mask_tiles, factor: int,
+                 tile: int, fast: bool = False,
+                 u8_io: bool = False) -> torch.Tensor:
+    """(B, T+2h, T+2h, ·) tiles -> (B, f*T, f*T, 3) SR of the tile centres;
+    ``params`` from `flat_trunk_params`.
+
+    Exact tier (``fast`` False): every conv in f32 (TF32 off).  Fast tier:
+    every conv on the conv-stage kernel with bf16 operands and f32
+    accumulation; conv0 reads the image through a split (the u8-exact
+    k/256 input with split weights, or, for f32 input, the three-term
+    split of image and weights), and convA..conv10 round their outputs to
+    bf16, which the BeLUs and the final sum read back in f32.  The
+    epilogue kernel crops the halo of ``expand``, adds the LR-space
+    bilinear base, and with ``u8_io`` (uint8 tiles in) quantises, so the
+    HR tiles come out uint8."""
+    h = HALO
+    p = params
+    bf = torch.bfloat16
+    zero_u8 = zero_tiles if u8_io else None
+    if u8_io:
+        zero_tiles = zero_tiles.float() * (1.0 / 255.0)
+        edge_tiles = edge_tiles.float() * (1.0 / 255.0)
+        mask_tiles = mask_tiles.float()
+    x = zero_tiles
+    mask = mask_tiles
+
+    def cv(t, name):
+        if fast:
+            return conv_stage(t.to(bf), p[name + "_bf16"], bf).float()
+        return conv2d_same(t, p[name])
+
+    b0, p0 = p["f_bias"], p["f_belu"]
+    if not fast:
+        c0 = conv2d_same(x, p["conv0"])
+    elif zero_u8 is not None:
+        t8 = zero_u8.to(bf) * 2.0 ** -8
+        c0 = conv_stage(torch.cat([t8, t8], dim=-1), p["conv0_u8"])
+    else:
+        hi, lo = bf16_split(x)
+        c0 = conv_stage(torch.cat([hi, hi, lo], dim=-1), p["conv0_f32"])
+    f_ = mask * belu(c0 + b0, p0)
+    n = b0.shape[0]
+    e = p["expand_bias"].shape[0]
+    a = cv(f_, "convA")                                  # conv1|conv2|conv3
+    l1 = mask * belu(a[..., :n] + p["l1_bias"], p["l1_belu"])
+    b = cv(l1, "convB")                                  # conv5|conv6|conv7
+    l2 = mask * belu(a[..., n:2 * n] + b[..., :n] + p["l2_bias"],
+                     p["l2_belu"])
+    c = cv(l2, "convC")                                  # conv8|conv9
+    l3 = mask * belu(a[..., 2 * n:3 * n] + b[..., n:2 * n] + c[..., :n]
+                     + p["l3_bias"], p["l3_belu"])
+    expand = (b[..., 2 * n:2 * n + e] + c[..., n:n + e] + cv(l3, "conv10")
+              + p["expand_bias"])
+    base_ph = bilinear_phases_cropped(edge_tiles, factor, h, h, tile)
+    # cuDNN may hand back its convs' outputs in either memory format, and
+    # the sum follows it; the epilogue kernel reads NHWC densely.
+    return epilogue_cuda(expand.contiguous(), factor, tile, h,
+                         addend=base_ph, to_u8=u8_io)
+
+
+def _pack_s2d(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, S, C) -> (B, S/2, S/2, 4C), block-major (inverse of
+    `ops.cuda.shuffle.unpack_s2d`)."""
+    nb, sh, sw, c = t.shape
+    return t.reshape(nb, sh // 2, 2, sw // 2, 2, c) \
+        .permute(0, 1, 3, 2, 4, 5).reshape(nb, sh // 2, sw // 2, 4 * c)
+
+
+def _tile_kernel_packed(pp, zero_tiles, edge_tiles, mask_tiles, factor: int,
+                        tile: int) -> torch.Tensor:
+    """(B, T+2h, T+2h, ·) uint8 tiles with an even side -> (B, f*T, f*T, 3)
+    uint8: the fast tier with the whole trunk in 2x2 space-to-depth space
+    (quarter resolution, 4x channels); ``pp`` from `packed_trunk_params`.
+
+    Five 3x3 stages on the conv-stage kernel: W0 (the split u8-exact
+    conv0) and WD (conv10 plus the bilinear base as extra K rows over the
+    packed edge tiles) in f32 out, WA, WB, WC in bf16 out; every
+    activation is rounded to bf16 after its BeLU.  The sum ((b + c) + d)
+    + bias is taken in f32 in packed space, and the epilogue kernel
+    quantises it, unpacks, crops the halo and shuffles.
+
+    ``zero_tiles=None`` derives the zero-padded tiles on the device as
+    edge * mask, which is the same bytes: the two gathers differ only
+    outside the image, where the mask is 0."""
+    h = HALO
+    bf = torch.bfloat16
+    ci = edge_tiles.shape[-1]
+    n = pp["f_bias"].shape[0] // 4
+    e = pp["expand_bias"].shape[0] // 4
+    te8 = _pack_s2d(edge_tiles).to(bf) * 2.0 ** -8
+    m4 = _pack_s2d(mask_tiles).to(bf)
+    if zero_tiles is None:
+        t8 = te8 * m4.repeat_interleave(ci, dim=-1)
+    else:
+        t8 = _pack_s2d(zero_tiles).to(bf) * 2.0 ** -8
+    o = conv_stage(torch.cat([t8, t8], dim=-1), pp["W0"])
+    mN = m4.repeat_interleave(n, dim=-1)
+    f_ = belu(o + pp["f_bias"], pp["f_belu"]).to(bf) * mN
+    N = 4 * n
+    a = conv_stage(f_, pp["WA"], bf)
+    l1 = belu(a[..., :N].float() + pp["l1_bias"], pp["l1_belu"]).to(bf) * mN
+    b = conv_stage(l1, pp["WB"], bf)
+    l2 = belu(a[..., N:2 * N].float() + b[..., :N].float() + pp["l2_bias"],
+              pp["l2_belu"]).to(bf) * mN
+    c = conv_stage(l2, pp["WC"], bf)
+    l3 = belu(a[..., 2 * N:3 * N].float() + b[..., N:2 * N].float()
+              + c[..., :N].float() + pp["l3_bias"], pp["l3_belu"]).to(bf) * mN
+    d = conv_stage(torch.cat([l3, te8, te8], dim=-1), pp["WD"])
+    total = (b[..., 2 * N:2 * N + 4 * e].float() + c[..., N:N + 4 * e].float()
+             + d + pp["expand_bias"])
+    return epilogue_cuda(total, factor, tile, h, to_u8=True, packed=True)
+
+
+def _gather_u8_range(img: np.ndarray, tile: int, h: int, nx: int, t0: int,
+                     t1: int, need_zero: bool = True):
+    """uint8 tiles [t0, t1) of the row-major grid, straight from the
+    unpadded image: (zero-padded or None, edge-padded, {0,1} mask), all
+    uint8.  ``need_zero=False`` skips the zero-padded tiles (the packed
+    kernel derives them on the device)."""
+    if img.dtype != np.uint8:
+        raise TypeError(f"expected a uint8 image, got {img.dtype}")
+    return native.gather_tiles_range(img, tile, h, nx, t0, t1,
+                                     need_zero=need_zero)
+
+
+def _gather_u8(img: np.ndarray, tile: int, h: int, ny: int, nx: int,
+               need_zero: bool = True):
+    """`_gather_u8_range` over the whole ny x nx grid."""
+    return _gather_u8_range(img, tile, h, nx, 0, ny * nx, need_zero)
+
+
+_NOT_PORTED = "is not ported yet to the PyTorch package"
+
+
 def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
-             chunk: Optional[int] = None, engine: str = "fused",
-             compute_dtype: Optional[torch.dtype] = None,
-             device="cuda") -> np.ndarray:
-    """Upscale an (H,W,3) f32 image in [0,1] by ``factor``, any size.
+             chunk: Optional[int] = None, engine: str = "xla",
+             compute_dtype: Optional[torch.dtype] = None, out16=None,
+             conv0_s2d: bool = True, conv0_ws: bool = True,
+             trunk: str = "auto", device="cuda") -> np.ndarray:
+    """Upscale an (H,W,3) image by ``factor``, any size: uint8 in gives
+    uint8 out on the xla engine; float32 in [0,1] gives float32 out.
 
     ``tile`` is the LR tile side (tile + 2*HALO is the padded side; 242
-    gives 256).  ``chunk`` is the number of tiles per dispatch.  ``engine``
-    is "fused", the trunk kernel, the one engine ported so far.
+    gives 256).  ``chunk`` is the number of tiles per dispatch (24).
+    ``engine``: "xla" (the default; `_tile_kernel`, or
+    `_tile_kernel_packed` for the fast tier on uint8 tiles of an even
+    padded side) or "fused" (the trunk kernel; float32 images only).
     ``compute_dtype`` None (or float32) is the exact tier; bfloat16 the
-    fast tier, the trunk in bf16 with f32 accumulation (the bilinear base
-    and the sum stay f32).  ``device`` runs the tiles there: "cuda"
-    launches the kernels, "cpu" runs their plain PyTorch versions."""
-    if engine != "fused":
-        raise ValueError(f"engine {engine!r} is not ported yet; use 'fused'")
-    cd = compute_dtype or torch.float32
-    img = np.asarray(image)
-    if img.dtype == np.uint8:
+    fast tier.  ``out16``, ``conv0_s2d``, ``conv0_ws`` and ``trunk`` are
+    the JAX package's variant knobs; only their defaults are ported.
+    ``device`` runs the tiles there: "cuda" launches the kernels, "cpu"
+    runs their plain PyTorch versions."""
+    if engine not in ("xla", "fused"):
+        raise ValueError(f"engine {engine!r} {_NOT_PORTED}; use 'xla' or "
+                         "'fused'")
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, not "
+                         f"{compute_dtype}")
+    fast = compute_dtype == torch.bfloat16
+    for knob, value, default in (("out16", out16, None),
+                                 ("conv0_s2d", conv0_s2d, True),
+                                 ("conv0_ws", conv0_ws, True),
+                                 ("trunk", trunk, "auto")):
+        if value != default:
+            raise ValueError(f"tiled_sr({knob}={value!r}) {_NOT_PORTED}")
+    u8_io = np.asarray(image).dtype == np.uint8
+    img = np.asarray(image) if u8_io else np.asarray(image, np.float32)
+    if engine == "fused" and u8_io:
         raise ValueError("the fused engine takes f32 images in [0,1]; "
                          "divide uint8 pixels by 255")
-    img = np.asarray(img, np.float32)
     if tile < 1:
         raise ValueError(f"tile must be positive, got {tile}")
     device = torch.device(device)
     chunk = _DEFAULT_CHUNK if chunk is None else chunk
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    packed = {k: v.to(device) for k, v in
-              pack_trunk_weights(trunk_params(params), factor, cd).items()}
     hgt, wid, _ = img.shape
     h = HALO
     ny = max(1, -(-hgt // tile))
     nx = max(1, -(-wid // tile))
     n_tiles = ny * nx
-    out = np.zeros((hgt * factor, wid * factor, 3), np.float32)
+    use_packed = (engine == "xla" and fast and u8_io
+                  and (tile + 2 * h) % 2 == 0)
+
+    def on_device(tree):
+        return {k: v.to(device) for k, v in tree.items()}
+
+    if engine == "fused":
+        cd = compute_dtype or torch.float32
+        packed = on_device(pack_trunk_weights(trunk_params(params), factor,
+                                              cd))
+        run = lambda z, e, m: _tile_kernel_fused(  # noqa: E731
+            packed, z, e, m, factor, tile, cd)
+    elif use_packed:
+        pp = on_device(packed_trunk_params(params, factor))
+        run = lambda z, e, m: _tile_kernel_packed(  # noqa: E731
+            pp, z, e, m, factor, tile)
+    else:
+        fp = on_device(flat_trunk_params(params, fast))
+        run = lambda z, e, m: _tile_kernel(  # noqa: E731
+            fp, z, e, m, factor, tile, fast, u8_io)
+
+    out = np.zeros((hgt * factor, wid * factor, 3),
+                   np.uint8 if u8_io else np.float32)
+    tf = tile * factor
     pending: deque = deque()
 
     def drain_one():
         start, cnt, res = pending.popleft()
-        native.scatter_tiles(res[:cnt].cpu().numpy(), start, nx, out)
+        res = res[:cnt].cpu().numpy()
+        if u8_io:
+            _scatter_u8(res, start, nx, tf, out)
+        else:
+            native.scatter_tiles(res, start, nx, out)
 
     for start in range(0, n_tiles, chunk):
         stop = min(start + chunk, n_tiles)
         cnt = stop - start
-        zb, eb, mb = native.gather_tiles_range(img, tile, h, nx, start, stop)
+        if u8_io:
+            tiles = _gather_u8_range(img, tile, h, nx, start, stop,
+                                     need_zero=not use_packed)
+        else:
+            tiles = native.gather_tiles_range(img, tile, h, nx, start, stop)
         if cnt < chunk:  # pad the last chunk: one shape for every chunk
             pad = ((0, chunk - cnt), (0, 0), (0, 0), (0, 0))
-            zb, eb, mb = (np.pad(t, pad) for t in (zb, eb, mb))
-        res = _tile_kernel_fused(
-            packed, *(torch.from_numpy(t).to(device) for t in (zb, eb, mb)),
-            factor, tile, cd)
+            tiles = [None if t is None else np.pad(t, pad) for t in tiles]
+        res = run(*(None if t is None else torch.from_numpy(t).to(device)
+                    for t in tiles))
         pending.append((start, cnt, res))
         if len(pending) >= _MAX_INFLIGHT:
             drain_one()
     while pending:
         drain_one()
     return out
-
-
-def _quantise_u8(x: torch.Tensor) -> torch.Tensor:
-    """floor(clip(x, 0, 1) * 255 + 0.5) as uint8, the JAX package's."""
-    return torch.floor(torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
 
 def _tile_kernel_simple(edge_tiles: torch.Tensor, factor: int, tile: int,
@@ -143,10 +465,10 @@ def _tile_kernel_simple(edge_tiles: torch.Tensor, factor: int, tile: int,
     if mode == "bilinear":
         ph = linear_to_srgb(bilinear_phases_cropped(srgb_to_linear(x),
                                                     factor, h, h, tile))
-        return depth_to_space_cuda(_quantise_u8(ph) if u8_io else ph, factor)
+        return depth_to_space_cuda(quantise_u8(ph) if u8_io else ph, factor)
     core = x[:, h:h + tile, h:h + tile, :]
     out = linear_to_srgb(avg_pool(srgb_to_linear(core), factor))
-    return _quantise_u8(out) if u8_io else out
+    return quantise_u8(out) if u8_io else out
 
 
 def _gather_edge(img: np.ndarray, tile: int, h: int, ny: int, nx: int):

@@ -12,19 +12,22 @@ import numpy as np
 
 
 def gather_tiles_range(img: np.ndarray, tile: int, halo: int, nx: int,
-                       t0: int, t1: int):
-    """Tiles [t0, t1) of the row-major grid of an (H,W,C) f32 image,
-    gathered straight from the unpadded image (host memory O(t1-t0)).
+                       t0: int, t1: int, need_zero: bool = True):
+    """Tiles [t0, t1) of the row-major grid of an (H,W,C) image, gathered
+    straight from the unpadded image (host memory O(t1-t0)).
 
-    Returns (zero_tiles, edge_tiles, mask_tiles), f32, shapes
-    (n, side, side, C), (n, side, side, C), (n, side, side, 1)."""
-    img = np.ascontiguousarray(img, dtype=np.float32)
+    Returns (zero_tiles, edge_tiles, mask_tiles), shapes (n, side, side,
+    C), (n, side, side, C), (n, side, side, 1): uint8 for a uint8 image,
+    float32 otherwise.  ``need_zero=False`` returns None for the
+    zero-padded tiles."""
+    dtype = np.uint8 if img.dtype == np.uint8 else np.float32
+    img = np.ascontiguousarray(img, dtype=dtype)
     h, w, c = img.shape
     side = tile + 2 * halo
     n = t1 - t0
-    zt = np.zeros((n, side, side, c), np.float32)
-    et = np.empty((n, side, side, c), np.float32)
-    mt = np.zeros((n, side, side, 1), np.float32)
+    zt = np.zeros((n, side, side, c), dtype) if need_zero else None
+    et = np.empty((n, side, side, c), dtype)
+    mt = np.zeros((n, side, side, 1), dtype)
     for k in range(n):
         iy, ix = divmod(t0 + k, nx)
         y0, x0 = iy * tile - halo, ix * tile - halo
@@ -35,8 +38,9 @@ def gather_tiles_range(img: np.ndarray, tile: int, halo: int, nx: int,
         et[k] = np.pad(sub, ((ry, side - ry - sub.shape[0]),
                              (rx, side - rx - sub.shape[1]), (0, 0)),
                        mode="edge")
-        zt[k, ry:ry + sub.shape[0], rx:rx + sub.shape[1]] = sub
-        mt[k, ry:ry + sub.shape[0], rx:rx + sub.shape[1]] = 1.0
+        if need_zero:
+            zt[k, ry:ry + sub.shape[0], rx:rx + sub.shape[1]] = sub
+        mt[k, ry:ry + sub.shape[0], rx:rx + sub.shape[1]] = 1
     return zt, et, mt
 
 

@@ -11,9 +11,16 @@ Tolerances (chip_smoke.py holds the main path's shapes to the same):
 - trunk, bf16: max abs 1e-2 and mean abs 1e-4 — a sum in another order
   can put a value on the other side of a bf16 rounding boundary, and the
   later stages carry that ulp (tests/test_torch_trunk.py);
-- depth-to-space: byte-identical (one f32 add per element on both sides);
-- the fast tier end to end: 4 u8 codes, the JAX suite's bound for the
-  same bf16 products summed in another order.
+- depth-to-space and the epilogue: byte-identical (one f32 add per
+  element and the same quantisation arithmetic on both sides);
+- conv stage: f32 out within 1e-5 of the largest output (exact bf16
+  products, f32 sums in another order and in the tensor cores'
+  accumulator); bf16 out within that bound plus one bf16 ulp (the
+  rounding of f32 sums that differ can cross a midpoint; measured on an
+  H100, kernel and cuDNN alike reach tens of ulps on values that cancel
+  to near zero), with at most 1e-3 of the values differing;
+- the fast tiers end to end: 4 u8 codes, the JAX suite's bound for the
+  same bf16 products summed in another order; the exact tier 1 code.
 """
 
 import numpy as np
@@ -21,7 +28,7 @@ import pytest
 import torch
 
 from rusty_sr_tpu_torch.api import upscale
-from rusty_sr_tpu_torch.ops.cuda import shuffle, trunk
+from rusty_sr_tpu_torch.ops.cuda import conv_stage, shuffle, trunk
 from rusty_sr_tpu_torch.params import init_params, load_builtin
 from rusty_sr_tpu_torch.utils.imageio import to_u8
 
@@ -124,11 +131,13 @@ def test_cuda_tiled_path_matches_cpu(cuda_device):
     anime = load_builtin("anime")
     before = trunk.LAUNCHES[torch.float32]
     before_d2s = shuffle.LAUNCHES
-    got = upscale(img, anime, 3, tile=21, chunk=4, device=cuda_device)
+    got = upscale(img, anime, 3, engine="fused", tile=21, chunk=4,
+                  device=cuda_device)
     # 2x3 tiles in two chunks
     assert trunk.LAUNCHES[torch.float32] == before + 2
     assert shuffle.LAUNCHES == before_d2s + 2
-    want = upscale(img, anime, 3, tile=21, chunk=4, device="cpu")
+    want = upscale(img, anime, 3, engine="fused", tile=21, chunk=4,
+                   device="cpu")
     np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
 
 
@@ -138,10 +147,11 @@ def test_cuda_fast_tier_matches_cpu(cuda_device):
                                            dtype=np.uint8)
     anime = load_builtin("anime")
     before = trunk.LAUNCHES[torch.bfloat16]
-    got = upscale(u8, anime, 3, fast=True, tile=21, chunk=4,
+    got = upscale(u8, anime, 3, fast=True, engine="fused", tile=21, chunk=4,
                   device=cuda_device)
     assert trunk.LAUNCHES[torch.bfloat16] == before + 2
-    want = upscale(u8, anime, 3, fast=True, tile=21, chunk=4, device="cpu")
+    want = upscale(u8, anime, 3, fast=True, engine="fused", tile=21,
+                   chunk=4, device="cpu")
     d = np.abs(to_u8(got).astype(int) - to_u8(want).astype(int))
     assert d.max() <= 4
 
@@ -191,3 +201,129 @@ def test_cuda_shuffle_rejects_bad_inputs(cuda_device):
     with pytest.raises(TypeError):
         shuffle.depth_to_space_cuda(x.to(torch.uint8), 3,
                                     addend=x)
+
+
+def bf16_excess_ulps(got, want, f32_bound):
+    """|got - want| beyond ``f32_bound``, in bf16 ulps at the larger
+    magnitude."""
+    got, want = got.float(), want.float()
+    m = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    excess = ((got - want).abs() - f32_bound).clamp_min(0.0)
+    return excess / torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+# (batch, h, w, cin, cout, k): the packed stages (W0, WA, WD), the flat
+# tier's conv0s and convA/conv10, one probe shape, ragged sizes.
+CONV_CASES = [(2, 64, 64, 24, 128, 3), (2, 64, 64, 128, 384, 3),
+              (2, 64, 64, 152, 108, 3), (3, 37, 45, 6, 32, 5),
+              (3, 37, 45, 9, 32, 5), (2, 30, 30, 32, 96, 5),
+              (2, 30, 30, 32, 27, 3), (1, 24, 136, 32, 96, 1),
+              (1, 13, 21, 13, 130, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CONV_CASES,
+                         ids=[f"{c[3]}to{c[4]}-k{c[5]}-{c[1]}x{c[2]}"
+                              for c in CONV_CASES])
+def test_cuda_conv_stage_matches_plain_version(cuda_device, case,
+                                               out_dtype):
+    bsz, h, w, cin, cout, k = case
+    out_dtype = getattr(torch, out_dtype)
+    g = torch.Generator(device="cpu").manual_seed(cin * 131 + cout)
+    x = torch.randn((bsz, h, w, cin), generator=g).bfloat16().to(cuda_device)
+    wt = (torch.randn((k, k, cin, cout), generator=g)
+          / (k * k * cin) ** 0.5).bfloat16().to(cuda_device)
+    before = conv_stage.LAUNCHES
+    got = conv_stage.conv_stage(x, wt, out_dtype)
+    torch.cuda.synchronize()
+    assert conv_stage.LAUNCHES == before + 1
+    want = conv_stage.conv_stage_reference(x, wt, out_dtype)
+    assert got.dtype == want.dtype == out_dtype
+    assert got.shape == want.shape == (bsz, h, w, cout)
+    assert torch.isfinite(got.float()).all()
+    bound = 1e-5 * float(want.float().abs().max())
+    if out_dtype == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= bound, err
+    else:
+        u = bf16_excess_ulps(got, want, bound)
+        share = float((got != want).float().mean())
+        assert u.max() <= 1 and share <= 1e-3, (float(u.max()), share)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["u8", "f32", "packed"])
+@pytest.mark.parametrize("factor,tile,off", [(3, 242, 7), (2, 13, 7),
+                                             (4, 5, 2)])
+def test_cuda_epilogue_is_byte_identical(cuda_device, mode, factor, tile,
+                                         off):
+    g = torch.Generator(device="cpu").manual_seed(tile)
+    side = tile + 2 * off + (1 if mode == "packed" and tile % 2 else 0)
+    e = 3 * factor * factor
+    x = (torch.randn((3, side, side, e), generator=g) * 0.4 + 0.5)
+    if mode == "packed":
+        x = x.reshape(3, side // 2, 2, side // 2, 2, e).permute(
+            0, 1, 3, 2, 4, 5).reshape(3, side // 2, side // 2, 4 * e)
+        add = None
+    else:
+        add = (torch.randn((3, tile, tile, e), generator=g) * 0.1) \
+            .to(cuda_device)
+    x = x.contiguous().to(cuda_device)
+    kw = dict(addend=add, to_u8=mode != "f32", packed=mode == "packed")
+    before = shuffle.EPILOGUE_LAUNCHES
+    got = shuffle.epilogue_cuda(x, factor, tile, off, **kw)
+    torch.cuda.synchronize()
+    assert shuffle.EPILOGUE_LAUNCHES == before + 1
+    want = shuffle.epilogue_reference(x, factor, tile, off, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast,tile", [(False, 21), (True, 20), (True, 21)],
+                         ids=["exact", "fast-packed", "fast-flat"])
+def test_cuda_xla_path_matches_cpu(cuda_device, fast, tile):
+    """The default engine on u8 input: uint8 out, the kernels launched
+    (2x3 tiles in two chunks), within the bounds of the plain run."""
+    u8 = np.random.default_rng(8).integers(0, 256, (37, 50, 3),
+                                           dtype=np.uint8)
+    anime = load_builtin("anime")
+    n_conv, n_epi = conv_stage.LAUNCHES, shuffle.EPILOGUE_LAUNCHES
+    got = upscale(u8, anime, 3, fast=fast, tile=tile, chunk=4,
+                  device=cuda_device)
+    assert shuffle.EPILOGUE_LAUNCHES == n_epi + 2
+    assert conv_stage.LAUNCHES == n_conv + (10 if fast else 0)
+    want = upscale(u8, anime, 3, fast=fast, tile=tile, chunk=4,
+                   device="cpu")
+    assert got.dtype == want.dtype == np.uint8
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= (4 if fast else 1)
+
+
+@pytest.mark.cuda
+def test_cuda_conv_stage_and_epilogue_reject_bad_inputs(cuda_device):
+    x = torch.zeros((1, 8, 8, 16), device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros((3, 3, 16, 8), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        conv_stage.conv_stage(x.float(), w)
+    with pytest.raises(ValueError):
+        conv_stage.conv_stage(x, w[:2])
+    with pytest.raises(ValueError):
+        conv_stage.conv_stage(x, w[:, :, :15])
+    with pytest.raises(ValueError):
+        conv_stage.conv_stage(x.transpose(1, 2), w)
+    with pytest.raises(ValueError):
+        conv_stage.conv_stage(x, w.cpu())
+    e = torch.zeros((2, 20, 20, 27), device=cuda_device)
+    add = torch.zeros((2, 6, 6, 27), device=cuda_device)
+    with pytest.raises(ValueError):
+        shuffle.epilogue_cuda(e, 3, 6, 7)            # no addend
+    with pytest.raises(ValueError):
+        shuffle.epilogue_cuda(e, 3, 6, 15, add)      # window past the edge
+    with pytest.raises(ValueError):
+        shuffle.epilogue_cuda(e, 3, 6, 7, add[:1])
+    with pytest.raises(TypeError):
+        shuffle.epilogue_cuda(e.double(), 3, 6, 7, add)
+    with pytest.raises(ValueError):
+        shuffle.epilogue_cuda(e, 3, 6, 7, add, packed=True)

@@ -1,5 +1,7 @@
 """The port's single-image paths against the JAX package's.
 
+The fused engine's paths (the xla engine's are in tests/test_torch_xla.py):
+
 - Exact tier: port `tiled_sr(engine="fused")` on the CPU (the trunk's
   plain version) against JAX `tiled_sr(engine="fused",
   compute_dtype=f32)` (its Pallas trunk in interpret mode) and against
@@ -95,14 +97,15 @@ def test_tiled_fast_tier_matches_jax(anime, shape):
     """The bf16 trunk, on u8-valued input as the CLI gives it: within 4
     codes of JAX's fused fast tier, in the bf16 class against exact."""
     img = u8_image(shape, 4).astype(np.float32) / 255.0
-    fast = tiled_sr(anime, img, 3, tile=16, chunk=4, device="cpu",
-                    compute_dtype=torch.bfloat16)
+    fast = tiled_sr(anime, img, 3, tile=16, chunk=4, engine="fused",
+                    device="cpu", compute_dtype=torch.bfloat16)
     want = j_tiled_sr({k: jnp.asarray(v) for k, v in anime.items()}, img, 3,
                       tile=16, chunk=4, engine="fused",
                       compute_dtype=jnp.bfloat16)
     assert fast.shape == want.shape == (shape[0] * 3, shape[1] * 3, 3)
     assert codes(to_u8(fast), to_u8(want))[0] <= 4
-    exact = tiled_sr(anime, img, 3, tile=16, chunk=4, device="cpu")
+    exact = tiled_sr(anime, img, 3, tile=16, chunk=4, engine="fused",
+                     device="cpu")
     assert psnr(to_u8(fast) / 255.0, to_u8(exact) / 255.0) >= 45.0
     assert codes(to_u8(fast), to_u8(exact))[0] <= 8
 
@@ -116,14 +119,15 @@ def test_whole_image_net_matches_jax(anime):
 
 def test_api_upscale(anime):
     u8 = (image((9, 14, 3), 2) * 255).astype(np.uint8)
-    got = api.upscale(u8, anime, 3, tile=16, chunk=4, device="cpu")
+    got = api.upscale(u8, anime, 3, engine="fused", tile=16, chunk=4,
+                      device="cpu")
     want = tiled_sr(anime, u8.astype(np.float32) / 255.0, 3, tile=16,
-                    chunk=4, device="cpu")
+                    chunk=4, engine="fused", device="cpu")
     np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="finite sRGB"):
         api.upscale(image((4, 4, 3)) * 2.0, anime, device="cpu")
     with pytest.raises(ValueError, match="not ported"):
-        tiled_sr(anime, image((4, 4, 3)), engine="xla", device="cpu")
+        tiled_sr(anime, image((4, 4, 3)), engine="int8", device="cpu")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tiled_sr(anime, image((4, 4, 3)), device="cpu",
                  compute_dtype=torch.float16)
@@ -131,9 +135,11 @@ def test_api_upscale(anime):
 
 def test_api_upscale_fast(anime):
     u8 = u8_image((9, 14, 3), 5)
-    got = api.upscale(u8, anime, 3, fast=True, tile=16, chunk=4, device="cpu")
+    got = api.upscale(u8, anime, 3, fast=True, engine="fused", tile=16,
+                      chunk=4, device="cpu")
     want = tiled_sr(anime, u8.astype(np.float32) / 255.0, 3, tile=16,
-                    chunk=4, device="cpu", compute_dtype=torch.bfloat16)
+                    chunk=4, engine="fused", device="cpu",
+                    compute_dtype=torch.bfloat16)
     np.testing.assert_array_equal(got, want)
 
 
@@ -145,11 +151,10 @@ def lr_png(tmp_path_factory):
 
 
 def test_cli_png_within_one_code_of_jax_cli(lr_png, tmp_path):
-    args = ["--platform", "cpu", "--tile", "16", "--chunk", "4", "-p",
-            "anime", lr_png]
+    args = ["--engine", "fused", "--platform", "cpu", "--tile", "16",
+            "--chunk", "4", "-p", "anime", lr_png]
     assert cli.main(args + [str(tmp_path / "t.png")]) == 0
-    assert j_cli.main(["--engine", "fused"] + args
-                      + [str(tmp_path / "j.png")]) == 0
+    assert j_cli.main(args + [str(tmp_path / "j.png")]) == 0
     t = load_image_u8(str(tmp_path / "t.png")).astype(int)
     j = load_image_u8(str(tmp_path / "j.png")).astype(int)
     assert t.shape == j.shape == (78, 105, 3)
@@ -157,11 +162,10 @@ def test_cli_png_within_one_code_of_jax_cli(lr_png, tmp_path):
 
 
 def test_cli_fast_within_four_codes_of_jax_cli(lr_png, tmp_path):
-    args = ["--platform", "cpu", "--fast", "--tile", "16", "--chunk", "4",
-            "-p", "anime", lr_png]
+    args = ["--engine", "fused", "--platform", "cpu", "--fast", "--tile",
+            "16", "--chunk", "4", "-p", "anime", lr_png]
     assert cli.main(args + [str(tmp_path / "t.png")]) == 0
-    assert j_cli.main(["--engine", "fused"] + args
-                      + [str(tmp_path / "j.png")]) == 0
+    assert j_cli.main(args + [str(tmp_path / "j.png")]) == 0
     t = load_image_u8(str(tmp_path / "t.png"))
     j = load_image_u8(str(tmp_path / "j.png"))
     assert t.shape == j.shape == (78, 105, 3)

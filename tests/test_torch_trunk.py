@@ -236,6 +236,8 @@ static Dim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1},
 static inline void __syncthreads() {}
 struct float4 { float x, y, z, w; };
 static inline float4 __ldg(const float4* p) { return *p; }
+static inline float __fmul_rn(float a, float b) { return a * b; }
+static inline float __fadd_rn(float a, float b) { return a + b; }
 struct __nv_bfloat16 { uint16_t bits; };
 static inline float __bfloat162float(__nv_bfloat16 h) {
   const uint32_t u = (uint32_t)h.bits << 16;
@@ -284,26 +286,33 @@ _SHUFFLE_SHIM = _HOST_DEFS + r"""
 extern "C" void host_d2s_f32(const float* x, const float* a, float* out,
                              int n, int h, int w, int c, int f) {
   if (a)
-    d2s_kernel<float, true>(x, a, out, n * f * h, h, w, c, f);
+    d2s_kernel<float, float, true, false>(x, a, out, n * f * h, h, w, h, w, 0,
+                                          c, f);
   else
-    d2s_kernel<float, false>(x, nullptr, out, n * f * h, h, w, c, f);
+    d2s_kernel<float, float, false, false>(x, nullptr, out, n * f * h, h, w,
+                                           h, w, 0, c, f);
 }
 extern "C" void host_d2s_u8(const unsigned char* x, unsigned char* out,
                             int n, int h, int w, int c, int f) {
-  d2s_kernel<unsigned char, false>(x, nullptr, out, n * f * h, h, w, c, f);
+  d2s_kernel<unsigned char, unsigned char, false, false>(
+      x, nullptr, out, n * f * h, h, w, h, w, 0, c, f);
 }
 """
 
 
-def _compile_shim(tmp_path_factory, name, code):
+def _compile_shim(tmp_path_factory, name, code, extra=()):
+    """Compile ``code`` (a shim that includes a kernel source) with g++
+    into a shared library; no FMA contraction, as nvcc's __fmul_rn and
+    __fadd_rn promise."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernels' device code")
     d = tmp_path_factory.mktemp(name)
     (d / "shim.cc").write_text(code)
     subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
-                    "-fno-strict-aliasing", "-Wno-unknown-pragmas", "-I",
-                    CSRC, "-o", str(d / "shim.so"), str(d / "shim.cc")],
+                    "-fno-strict-aliasing", "-ffp-contract=off",
+                    "-Wno-unknown-pragmas", *extra, "-I", CSRC, "-o",
+                    str(d / "shim.so"), str(d / "shim.cc")],
                    check=True, capture_output=True, timeout=300)
     return ctypes.CDLL(str(d / "shim.so"))
 
