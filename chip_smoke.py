@@ -14,11 +14,15 @@ Phases, each fatal on failure:
    trunk in f32 (atol 1e-5) and in bf16 (max 1e-2, mean 1e-4); the
    depth-to-space kernel (byte-identical) in f32 with the addend and in
    u8; the conv-stage kernel at the packed fast tier's five stages (24
-   tiles of 128^2 packed), the flat fast tier's six convs (24 x 256^2)
+   tiles of 128^2 packed), the flat fast tier's six convs (24 x 255^2)
    and the shapes of the TPU conv-stage probes (f32 out within 1e-5 of
    the largest plain output; bf16 out within that plus 1 bf16 ulp, with
-   at most 1e-3 of the values differing); the epilogue (byte-identical) in u8
-   and in f32 with the halo crop and the base, and in the packed form;
+   at most 1e-3 of the values differing); each stage with its fused
+   epilogue as the fast tiers run it (byte-identical to the kernel
+   without it followed by the plain glue; against cuDNN plus the plain
+   glue, at most 1e-3 of the values beyond 1e-5 of the largest plus 1
+   bf16 ulp); the epilogue (byte-identical) in u8 and in f32 with the
+   halo crop and the base, and in the packed form;
 4. run the CLI end to end on a synthetic 1024x768 PNG, each path with
    the launch counts set to 0 just before it and read just after:
    ``--engine fused -p anime`` (the f32 trunk and the shuffle ran; within
@@ -34,13 +38,18 @@ Phases, each fatal on failure:
    byte-identical to the run through the plain versions, and within 1
    code of the CPU); then check that both engines' tiled paths agree
    with the whole-image network on a small crop;
-5. time each kernel and its plain version with CUDA events, in turns
-   (the conv stage at the packed stages and at each probe's shape), and
-   the CLI runs on the host clock.
+5. time each kernel, its plain version and, where one exists, the one
+   PyTorch call for the same function (cuDNN's bf16 conv for the conv
+   stage) with CUDA events, in turns, beside its bound (the larger of
+   its operations over the card's peak and its bytes over 3.35 TB/s);
+   time one 24-tile chunk of each fast tier with the fused stages and
+   with the plain glue between unfused stages (byte-identical outputs);
+   and the CLI runs on the host clock.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel with its launches (summed over the CLI paths above),
-error and times.  Without a CUDA device, or outside the repository, it
+lists each kernel (the conv stage once per stage of each fast tier) with
+its launches (summed over the CLI paths above), error, times and bound.
+Without a CUDA device, or outside the repository, it
 exits non-zero and prints no result.
 """
 
@@ -92,16 +101,48 @@ def cuda_time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def time_in_turns(plain, kernel):
-    """Mean ms per call of each, timed plain, kernel, kernel, plain after
-    two warm-up calls of each."""
-    for fn in (plain, kernel):
+def time_in_turns(plain, kernel, library=None):
+    """Mean ms per call of the kernel, the plain version and the library
+    call (None without one), timed plain, kernel, library, library,
+    kernel, plain after two warm-up calls of each."""
+    fns = [plain, kernel] + ([library] if library else [])
+    for fn in fns:
         fn()
         fn()
-    times = {plain: [], kernel: []}
-    for fn in (plain, kernel, kernel, plain):
-        times[fn].append(cuda_time_ms(fn))
-    return sum(times[kernel]) / 2, sum(times[plain]) / 2
+    times = {id(fn): [] for fn in fns}
+    for fn in fns + fns[::-1]:
+        times[id(fn)].append(cuda_time_ms(fn))
+    k_ms, p_ms = sum(times[id(kernel)]) / 2, sum(times[id(plain)]) / 2
+    return k_ms, p_ms, (sum(times[id(library)]) / 2 if library else None)
+
+
+# The card's published peaks (NVIDIA H100 SXM at 700 W, dense).
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+
+def bound(flops, nbytes, peak=PEAK_BF16):
+    """(ms, "operations" or "bytes"): the least time for the work."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors):
+    """Bytes of the tensors' elements (each read or written once)."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def conv_flops(x, w):
+    """2 * pixels * k^2 * Cin * Cout of a Same conv of x with HWIO w."""
+    return 2.0 * x.shape[0] * x.shape[1] * x.shape[2] * w.shape[0] \
+        * w.shape[1] * w.shape[2] * w.shape[3]
+
+
+def cudnn_bf16(x, w):
+    """One PyTorch call for the same conv: cuDNN's bf16 `F.conv2d` on the
+    NHWC tensors (a channels-last view), bf16 out."""
+    import torch.nn.functional as F
+    xt, wt, k = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), w.shape[0]
+    return lambda: F.conv2d(xt, wt, padding=k // 2)
 
 
 def bf16_excess_ulps(got, want, f32_bound):
@@ -123,6 +164,7 @@ def main() -> int:
     from rusty_sr_tpu_torch import cli, params
     from rusty_sr_tpu_torch.api import upscale
     from rusty_sr_tpu_torch.models.sr_net import sr_apply
+    from rusty_sr_tpu_torch.ops.activations import belu
     from rusty_sr_tpu_torch.ops.cuda import _build, conv_stage, shuffle, trunk
     from rusty_sr_tpu_torch.ops.resize import bilinear_phases_cropped
     from rusty_sr_tpu_torch.parallel import tiling
@@ -234,10 +276,10 @@ def main() -> int:
 
     # The conv-stage kernel: the packed tier's stages with their weights,
     # the flat tier's convs with theirs, and each TPU probe's own shape.
-    pp = {k: v.to(dev) for k, v in
-          tiling.packed_trunk_params(anime, 3).items()}
-    fp = {k: v.to(dev) for k, v in
-          tiling.flat_trunk_params(anime, fast=True).items()}
+    pp = tiling.prepare_stages({k: v.to(dev) for k, v in
+                                tiling.packed_trunk_params(anime, 3).items()})
+    fp = tiling.prepare_stages({k: v.to(dev) for k, v in tiling
+                                .flat_trunk_params(anime, fast=True).items()})
 
     def act(shape, u8=False):
         """bf16 activations: u8 codes / 256 (the conv0 inputs) or
@@ -252,34 +294,45 @@ def main() -> int:
         return (torch.randn((k, k, cin, cout), generator=gen)
                 / (k * k * cin) ** 0.5).to(bf).to(dev)
 
-    p128, p256 = (24, 128, 128), (24, 256, 256)
+    p128, p255 = (24, 128, 128), (24, 255, 255)
     f32 = torch.float32
-    conv_cases = [   # name, x, w, out dtype, timed as
-        ("packed W0", act(p128 + (24,), u8=True), pp["W0"], f32, "packed"),
-        ("packed WA", act(p128 + (128,)), pp["WA"], bf, "packed"),
-        ("packed WB", act(p128 + (128,)), pp["WB"], bf, "packed"),
-        ("packed WC", act(p128 + (128,)), pp["WC"], bf, "packed"),
-        ("packed WD", act(p128 + (152,)), pp["WD"], f32, "packed"),
-        ("flat conv0 (u8 split)", act(p256 + (6,), u8=True), fp["conv0_u8"],
-         f32, None),
-        ("flat conv0 (f32 split)", act(p256 + (9,)), fp["conv0_f32"], f32,
-         None),
-        ("flat convA", act(p256 + (32,)), fp["convA_bf16"], bf, None),
-        ("flat convB", act(p256 + (32,)), fp["convB_bf16"], bf, None),
-        ("flat convC", act(p256 + (32,)), fp["convC_bf16"], bf, None),
-        ("flat conv10", act(p256 + (32,)), fp["conv10_bf16"], bf, None),
+    conv_cases = [   # name, x, w, out dtype (flat: 24 tiles of 255^2, tile 241)
+        ("packed W0", act(p128 + (24,), u8=True), pp["W0"], f32),
+        ("packed WA", act(p128 + (128,)), pp["WA"], bf),
+        ("packed WB", act(p128 + (128,)), pp["WB"], bf),
+        ("packed WC", act(p128 + (128,)), pp["WC"], bf),
+        ("packed WD", act(p128 + (152,)), pp["WD"], f32),
+        ("flat conv0", act(p255 + (8,), u8=True), fp["conv0_u8"], f32),
+        ("flat conv0 (f32 split)", act(p255 + (16,)), fp["conv0_f32"], f32),
+        ("flat convA", act(p255 + (32,)), fp["convA_bf16"], bf),
+        ("flat convB", act(p255 + (32,)), fp["convB_bf16"], bf),
+        ("flat convC", act(p255 + (32,)), fp["convC_bf16"], bf),
+        ("flat conv10", act(p255 + (32,)), fp["conv10_bf16"], bf),
         ("row 3, mosaic_probe.py: 24x136 px, 1x1, 32->96",
-         act((1, 24, 136, 32)), probe_w(1, 32, 96), f32, "row 3"),
+         act((1, 24, 136, 32)), probe_w(1, 32, 96), f32),
         ("row 4, mosaic_probe2.py: 16x128 px, 3x3, 32->96",
-         act((1, 16, 128, 32)), probe_w(3, 32, 96), f32, "row 4"),
+         act((1, 16, 128, 32)), probe_w(3, 32, 96), f32),
         ("row 5, mosaic_probe3.py: 128 x 16x128 px, 5x5, 32->96",
-         act((128, 16, 128, 32)), probe_w(5, 32, 96), f32, "row 5"),
+         act((128, 16, 128, 32)), probe_w(5, 32, 96), f32),
         ("row 6, mosaic_probe4.py: 64 x 16x256 px, 5x5, 32->96",
-         act((64, 16, 256, 32)), probe_w(5, 32, 96), f32, "row 6"),
+         act((64, 16, 256, 32)), probe_w(5, 32, 96), f32),
         ("row 7, mosaic_probe5.py: 64 x 16x256 px, 3x3, 32->96",
-         act((64, 16, 256, 32)), probe_w(3, 32, 96), f32, "row 7")]
-    conv_err = 0.0
-    for name, x, w, odt, _ in conv_cases:
+         act((64, 16, 256, 32)), probe_w(3, 32, 96), f32)]
+
+    def stage_close(got, want, odt, share_of=CONV_SHARE):
+        """(ok, max abs err, ulps beyond the f32 bound, share differing):
+        f32 out within CONV_REL of max|want|; bf16 out within that plus
+        one bf16 ulp, on at most ``share_of`` of the values."""
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        u = bf16_excess_ulps(got, want, CONV_REL * scale)
+        share = float((got != want).float().mean())
+        if odt == torch.float32:
+            return err <= CONV_REL * scale, err, 0.0, share
+        return (float(u.max()) <= 1 and share <= share_of), err, \
+            float(u.max()), share
+
+    for name, x, w, odt in conv_cases:
         got = conv_stage.conv_stage(x, w, odt)
         want = conv_stage.conv_stage_reference(x, w, odt)
         torch.cuda.synchronize()
@@ -287,25 +340,104 @@ def main() -> int:
             fail(f"conv stage, {name}: {got.dtype} {tuple(got.shape)}")
         if not torch.isfinite(got.float()).all():
             fail(f"conv stage, {name}: non-finite output")
-        err = float((got.float() - want.float()).abs().max())
-        conv_err = max(conv_err, err)
+        ok, err, ulps, share = stage_close(got, want, odt)
         scale = float(want.float().abs().max())
-        if odt == f32:
-            print(f"conv stage vs plain, {name}, f32 out: max abs err "
-                  f"{err:.3g} = {err / scale:.3g} of max|plain| (tol "
-                  f"{CONV_REL})")
-            ok = err <= CONV_REL * scale
-        else:
-            u = bf16_excess_ulps(got, want, CONV_REL * scale)
-            share = float((got != want).float().mean())
-            print(f"conv stage vs plain, {name}, bf16 out: max abs err "
-                  f"{err:.3g}, {float(u.max()):.3g} ulp beyond "
-                  f"{CONV_REL} of max|plain|, {share:.3g} of values differ "
-                  f"(tol 1 ulp, {CONV_SHARE})")
-            ok = float(u.max()) <= 1 and share <= CONV_SHARE
+        print(f"conv stage vs plain, {name}, {str(odt)[6:]} out: max abs "
+              f"err {err:.3g} = {err / scale:.3g} of max|plain|, {ulps:.3g} "
+              f"ulp beyond {CONV_REL} of max|plain|, {share:.3g} of values "
+              f"differ (tol: f32 {CONV_REL}; bf16 1 ulp, {CONV_SHARE})")
         if not ok:
             fail(f"conv stage, {name}: outside its bound")
     del got, want
+
+    # The fused epilogue at the main paths' stage shapes, with the anime
+    # weights and the border masks of the CLI image's first chunk:
+    # byte-identical to the same kernel without it followed by the plain
+    # glue, and near cuDNN plus the plain glue.
+    ny, nx = -(-lr.shape[0] // 242), -(-lr.shape[1] // 242)
+    pk_chunk = [None if t is None else torch.from_numpy(np.pad(
+        t, ((0, 24 - t.shape[0]),) + ((0, 0),) * 3)).to(dev)
+        for t in tiling._gather_u8_range(lr, 242, tiling.HALO, nx, 0,
+                                         ny * nx, need_zero=False)]
+    ny1, nx1 = -(-lr.shape[0] // 241), -(-lr.shape[1] // 241)
+    fl_chunk = [torch.from_numpy(np.pad(
+        t, ((0, 24 - t.shape[0]),) + ((0, 0),) * 3)).to(dev)
+        for t in tiling._gather_u8_range(lr, 241, tiling.HALO, nx1, 0,
+                                         min(24, ny1 * nx1))]
+    m4 = tiling._pack_s2d(pk_chunk[2]).to(bf)
+    m1 = fl_chunk[2].to(bf)
+    Epi, Fused = conv_stage.Epilogue, conv_stage.FusedStage
+
+    def fused_forms():
+        """name -> (x, FusedStage, out dtype): each stage as the tile
+        kernels call it, with random bf16 inputs and addends."""
+        N, E, n, e = 128, 108, 32, 27
+
+        def ep(tree, name, k, addends=(), mask=None, gap=0):
+            return Epi(k, tree[name + "_bias"], tree[name + "_belu"],
+                       addends, mask, gap=gap)
+        return {
+            "packed W0": (act(p128 + (24,), u8=True), Fused(
+                pp["W0"], ep(pp, "f", N, (), m4)), f32),
+            "packed WA": (act(p128 + (N,)), Fused(
+                pp["WA"], ep(pp, "l1", N, (), m4)), bf),
+            "packed WB": (act(p128 + (N,)), Fused(
+                pp["WB"], ep(pp, "l2", N, (act(p128 + (384,))[..., N:],),
+                             m4)), bf),
+            "packed WC": (act(p128 + (N,)), Fused(
+                pp["WC"], ep(pp, "l3", N, (act(p128 + (384,))[..., 2 * N:],
+                                           act(p128 + (368,))[..., N:]),
+                             m4, 24)), bf),
+            "packed WD": (act(p128 + (264,))[..., :152], Fused(
+                pp["WD"], Epi(E, pp["expand_bias"], addends=(
+                    act(p128 + (368,))[..., 2 * N:],
+                    act(p128 + (264,))[..., 152:]), act_dtype=f32)), f32),
+            "flat conv0": (act(p255 + (8,), u8=True), Fused(
+                fp["conv0_u8"], ep(fp, "f", n, (), m1)), f32),
+            "flat convA": (act(p255 + (n,)), Fused(
+                fp["convA_bf16"], ep(fp, "l1", n, (), m1)), bf),
+            "flat convB": (act(p255 + (96,))[..., :n], Fused(
+                fp["convB_bf16"], ep(fp, "l2", n, (act(p255 + (96,))[
+                    ..., n:],), m1)), bf),
+            "flat convC": (act(p255 + (96,))[..., :n], Fused(
+                fp["convC_bf16"], ep(fp, "l3", n, (
+                    act(p255 + (96,))[..., 2 * n:],
+                    act(p255 + (96,))[..., n:]), m1)), bf),
+            "flat conv10": (act(p255 + (64,))[..., :n], Fused(
+                fp["conv10_bf16"], Epi(e, fp["expand_bias"], addends=(
+                    act(p255 + (96,))[..., 2 * n:],
+                    act(p255 + (64,))[..., n:]), act_dtype=f32)), bf)}
+
+    forms = fused_forms()
+    fused_err = {}
+    for name, (x, fs, odt) in forms.items():
+        epi = fs.epilogue
+        got = conv_stage.conv_stage(x, fs, odt)
+        unfused = conv_stage.conv_stage(x, fs.weights, odt)
+        want = conv_stage.stage_epilogue_reference(unfused, epi,
+                                                   torch.empty_like(got))
+        ref = conv_stage.conv_stage_reference(x, fs, odt)
+        torch.cuda.synchronize()
+        n, cout = epi.n_act, fs.hwio.shape[3]
+        parts = [slice(0, n), slice(n + epi.gap, cout + epi.gap)]
+        same = all(torch.equal(got[..., sl].contiguous().view(torch.uint8),
+                               want[..., sl].contiguous().view(torch.uint8))
+                   for sl in parts)
+        g = torch.cat([got[..., sl].float().reshape(-1) for sl in parts])
+        r = torch.cat([ref[..., sl].float().reshape(-1) for sl in parts])
+        scale = float(r.abs().max())
+        u = bf16_excess_ulps(g, r, CONV_REL * scale)
+        err, beyond = float((g - r).abs().max()), float((u > 1).float().mean())
+        fused_err[name] = err
+        print(f"fused stage, {name}: "
+              f"{'byte-identical to' if same else 'DIFFERENT from'} the "
+              f"kernel without the epilogue + the plain glue; vs cuDNN + the "
+              f"plain glue max abs err {err:.3g} ({err / scale:.3g} of max), "
+              f"{beyond:.3g} of values beyond {CONV_REL} of max + 1 bf16 ulp "
+              f"(tol {CONV_SHARE})")
+        if not same or not torch.isfinite(g).all() or beyond > CONV_SHARE:
+            fail(f"fused stage {name}: outside its bounds")
+    del got, unfused, want, ref
 
     # The epilogue: the exact tier's u8 and f32 forms (crop + base), the
     # packed tier's quantise-unpack form, and a ragged factor-2 case.
@@ -350,13 +482,15 @@ def main() -> int:
         shuffle.LAUNCHES = 0
         shuffle.EPILOGUE_LAUNCHES = 0
         conv_stage.LAUNCHES = 0
+        conv_stage.SHAPE_LAUNCHES.clear()
 
     def counts():
         torch.cuda.synchronize()
         return {"f32": trunk.LAUNCHES[torch.float32],
                 "bf16": trunk.LAUNCHES[torch.bfloat16],
                 "d2s": shuffle.LAUNCHES, "epi": shuffle.EPILOGUE_LAUNCHES,
-                "conv": conv_stage.LAUNCHES}
+                "conv": conv_stage.LAUNCHES,
+                "shapes": dict(conv_stage.SHAPE_LAUNCHES)}
 
     def run_cli(argv, what):
         rc = cli.main(argv)
@@ -387,6 +521,10 @@ def main() -> int:
 
     hr_mpix = lr.shape[0] * 3 * lr.shape[1] * 3 / 1e6
     launches = {"f32": 0, "bf16": 0, "d2s": 0, "epi": 0, "conv": 0}
+    stage_shape = {name: (fs.hwio.shape[0], fs.hwio.shape[2],
+                          fs.hwio.shape[3])
+                   for name, (_, fs, _) in forms.items()}
+    shape_launches = {}
     walls = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -403,7 +541,7 @@ def main() -> int:
                 ("xla fast", ["--fast"], ("conv", "epi"), 4),
                 ("xla fast flat", ["--fast", "--tile", "241"],
                  ("conv", "epi"), 4))
-        for tier, flags, must, bound in runs:
+        for tier, flags, must, code_bound in runs:
             argv = ["-p", "anime", *flags, src]
             name = tier.replace(" ", "_")
             zero_counts()
@@ -420,16 +558,23 @@ def main() -> int:
             for k in must:
                 if n[k] < 1:
                     fail(f"the CLI {tier} run launched no {k} kernel")
+            tier_stages = {"xla fast": "packed", "xla fast flat": "flat"}
+            for stage, key in stage_shape.items():
+                if stage.split()[0] == tier_stages.get(tier) and \
+                        n["shapes"].get(key, 0) < 1:
+                    fail(f"the CLI {tier} run launched no {stage} stage")
             for k in launches:
                 launches[k] += n[k]
+            for key, v in n["shapes"].items():
+                shape_launches[key] = shape_launches.get(key, 0) + v
             run_plain(argv + [out(f"{name}_plain.png")], tier)
             hk, hp = u8(out(f"{name}_kernel.png")), u8(out(f"{name}_plain.png"))
             if hk.shape != (lr.shape[0] * 3, lr.shape[1] * 3, 3):
                 fail(f"CLI {tier} output has shape {hk.shape}")
             worst, count = differ(hk, hp)
             print(f"CLI {tier} PNG, kernels vs plain: max {worst} u8 codes "
-                  f"({count} values differ; bound {bound})")
-            if worst > bound:
+                  f"({count} values differ; bound {code_bound})")
+            if worst > code_bound:
                 fail(f"CLI {tier} output differs by {worst} u8 codes from "
                      "the plain run")
         he = u8(out("xla_exact_kernel.png"))
@@ -510,22 +655,122 @@ def main() -> int:
     print(f"epilogue, {name}: kernel {times['epi'][0]:.3f} ms, plain "
           f"{times['epi'][1]:.3f} ms per call (CUDA events, 2 x 10 calls "
           f"each; {card})")
-    conv_ms = [0.0, 0.0]
-    for name, x, w, odt, timed in conv_cases:
-        if timed is None:
-            continue
-        k_ms, p_ms = time_in_turns(
+    # The conv stage at every shape: kernel, plain version (cuDNN, f32
+    # with TF32 off for f32 out), cuDNN's bf16 conv (bf16 out whatever the
+    # stage writes: the nearest single call) and the bound.
+    for name, x, w, odt in conv_cases:
+        hw = getattr(w, "hwio", w)
+        k_ms, p_ms, l_ms = time_in_turns(
             lambda: conv_stage.conv_stage_reference(x, w, odt),
-            lambda: conv_stage.conv_stage(x, w, odt))
-        if timed == "packed":
-            conv_ms[0] += k_ms
-            conv_ms[1] += p_ms
+            lambda: conv_stage.conv_stage(x, w, odt), cudnn_bf16(x, hw))
+        out_b = x.numel() // x.shape[3] * hw.shape[3] * (
+            4 if odt == torch.float32 else 2)
+        b_ms, b_by = bound(conv_flops(x, hw), nbytes(x, hw) + out_b)
         print(f"conv stage, {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} "
-              f"ms per call (CUDA events, 2 x 10 calls each; {card})")
-    times["conv"] = tuple(conv_ms)
-    print(f"conv stage, the packed tier's five stages (one chunk of 24 "
-          f"tiles): kernel {conv_ms[0]:.3f} ms, plain {conv_ms[1]:.3f} ms "
-          f"({card})")
+              f"ms, cuDNN bf16 {l_ms:.3f} ms, bound {b_ms:.3f} ms "
+              f"({b_by}; {b_ms / k_ms:.1%} reached) per call (CUDA events, "
+              f"2 x 10 calls each; {card})")
+
+    # Each fused stage as the main paths run it: the kernel with its
+    # epilogue, the plain version (cuDNN + the plain glue), cuDNN's bf16
+    # conv alone, and the bound (the conv's operations; the bytes of x,
+    # the weights, the addends' and mask's reads and the output).
+    stage_rows = {}
+    for name, (x, fs, odt) in forms.items():
+        epi, hw = fs.epilogue, fs.hwio
+        k_ms, p_ms, l_ms = time_in_turns(
+            lambda: conv_stage.conv_stage_reference(x, fs, odt),
+            lambda: conv_stage.conv_stage(x, fs, odt), cudnn_bf16(x, hw))
+        px = x.numel() // x.shape[3]
+        out = conv_stage.conv_stage(x, fs, odt)
+        moved = (nbytes(x, hw, epi.mask, epi.bias, epi.slope)
+                 + px * epi.n_act * 2 * len(epi.addends)
+                 + px * hw.shape[3] * out.element_size())
+        b_ms, b_by = bound(conv_flops(x, hw), moved)
+        stage_rows[name] = (k_ms, p_ms, l_ms, b_ms, b_by)
+        print(f"fused stage, {name}: kernel {k_ms:.3f} ms, plain (cuDNN + "
+              f"glue) {p_ms:.3f} ms, cuDNN bf16 conv alone {l_ms:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by}; {b_ms / k_ms:.1%} reached) per "
+              f"call (CUDA events, 2 x 10 calls each; {card})")
+    del out
+
+    # One 24-tile chunk of each fast tier: the fused stages against the
+    # composition before the epilogue was fused (the same kernel's five
+    # stages with the glue as plain PyTorch ops between them).
+    cs_ = conv_stage.conv_stage
+
+    def unfused_packed(edge, mask):
+        ci, N, E = edge.shape[-1], 128, 108
+        te8 = tiling._pack_s2d(edge).to(bf) * 2.0 ** -8
+        m4_ = tiling._pack_s2d(mask).to(bf)
+        t8 = te8 * m4_.repeat_interleave(ci, dim=-1)
+        o = cs_(torch.cat([t8, t8], dim=-1), pp["W0"])
+        mN = m4_.repeat_interleave(N // 4, dim=-1)
+        f_ = belu(o + pp["f_bias"], pp["f_belu"]).to(bf) * mN
+        a = cs_(f_, pp["WA"], bf)
+        l1 = belu(a[..., :N].float() + pp["l1_bias"], pp["l1_belu"]).to(bf) \
+            * mN
+        b = cs_(l1, pp["WB"], bf)
+        l2 = belu(a[..., N:2 * N].float() + b[..., :N].float()
+                  + pp["l2_bias"], pp["l2_belu"]).to(bf) * mN
+        c = cs_(l2, pp["WC"], bf)
+        l3 = belu(a[..., 2 * N:3 * N].float() + b[..., N:2 * N].float()
+                  + c[..., :N].float() + pp["l3_bias"], pp["l3_belu"]) \
+            .to(bf) * mN
+        d = cs_(torch.cat([l3, te8, te8], dim=-1), pp["WD"])
+        total = (b[..., 2 * N:2 * N + E].float() + c[..., N:N + E].float()
+                 + d + pp["expand_bias"])
+        return shuffle.epilogue_cuda(total, 3, 242, h, to_u8=True,
+                                     packed=True)
+
+    def unfused_flat(z8, e8, m8):
+        n, e = 32, 27
+        edge, mask = e8.float() * (1.0 / 255.0), m8.float()
+        t8 = z8.to(bf) * 2.0 ** -8
+        c0 = cs_(torch.cat([t8, t8, torch.zeros_like(t8[..., :2])], dim=-1),
+                 fp["conv0_u8"])
+
+        def cv(t, name):
+            return cs_(t.to(bf), fp[name + "_bf16"], bf).float()
+        f_ = mask * belu(c0 + fp["f_bias"], fp["f_belu"])
+        a = cv(f_, "convA")
+        l1 = mask * belu(a[..., :n] + fp["l1_bias"], fp["l1_belu"])
+        b = cv(l1, "convB")
+        l2 = mask * belu(a[..., n:2 * n] + b[..., :n] + fp["l2_bias"],
+                         fp["l2_belu"])
+        c = cv(l2, "convC")
+        l3 = mask * belu(a[..., 2 * n:3 * n] + b[..., n:2 * n] + c[..., :n]
+                         + fp["l3_bias"], fp["l3_belu"])
+        expand = (b[..., 2 * n:2 * n + e] + c[..., n:n + e] + cv(l3, "conv10")
+                  + fp["expand_bias"])
+        base_ph = bilinear_phases_cropped(edge, 3, h, h, 241)
+        return shuffle.epilogue_cuda(expand.contiguous(), 3, 241, h,
+                                     addend=base_ph, to_u8=True)
+
+    chunks = {
+        "packed": (lambda: unfused_packed(pk_chunk[1], pk_chunk[2]),
+                   lambda: tiling._tile_kernel_packed(
+                       pp, None, pk_chunk[1], pk_chunk[2], 3, 242)),
+        "flat": (lambda: unfused_flat(*fl_chunk),
+                 lambda: tiling._tile_kernel(fp, *fl_chunk, 3, 241, True,
+                                             True))}
+    chunk_ms = {}
+    for tier, (before, fused) in chunks.items():
+        if not torch.equal(before(), fused()):
+            fail(f"the {tier} chunk with fused stages differs from the "
+                 "composition with the plain glue")
+        f_ms, b_ms, _ = time_in_turns(before, fused)
+        stages = sum(v[0] for k, v in stage_rows.items()
+                     if k.startswith(tier))
+        chunk_ms[tier] = (f_ms, b_ms, stages)
+        print(f"{tier} fast-tier chunk, 24 tiles (u8 in, u8 HR out; "
+              f"byte-identical outputs): fused stages {f_ms:.3f} ms, the "
+              f"stages with the plain glue between them {b_ms:.3f} ms; the "
+              f"five fused stage kernels alone {stages:.3f} ms, so the rest "
+              f"(input packing, epilogue kernel, the rest of the plain ops) "
+              f"{f_ms - stages:.3f} ms (CUDA events, 2 x 10 calls each; "
+              f"{card})")
+
     for tier in ("xla exact", "xla fast", "xla fast flat", "fused exact",
                  "fused fast"):
         print(f"CLI {tier}: {walls[tier]:.3f} s wall = "
@@ -533,27 +778,45 @@ def main() -> int:
               f"{lr.shape[0]} -> {lr.shape[1] * 3}x{lr.shape[0] * 3} (host "
               f"clock, first run in the process; {card})")
 
-    def row(name, source, replaces, count, err, timed):
+    def row(name, source, replaces, count, err, timed, bnd, library=None):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": count,
-                "max_abs_err": err, "ms": timed[0], "plain_ms": timed[1]}
+                "max_abs_err": err, "ms": timed[0], "plain_ms": timed[1],
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library}
 
+    # The trunk's work on a 24 x 256^2 chunk: stage extents 252, 248, 246,
+    # 244, 242 (the halo shrinks by each conv's radius); K and N per stage.
+    ext = ((252, 25 * 3, 32), (248, 25 * 32, 96), (246, 9 * 32, 91),
+           (244, 9 * 32, 59), (242, 9 * 32, 27))
+    trunk_flops = sum(2.0 * 24 * s_ * s_ * k_ * n_ for s_, k_, n_ in ext)
+    trunk_bytes = nbytes(main_x, main_m) + 24 * 242 * 242 * 27 * 4
     trunk_src = "rusty_sr_tpu_torch/csrc/trunk.cu"
     trunk_tpu = "rusty_sr_tpu/ops/pallas/trunk.py:134"
     shuffle_src = "rusty_sr_tpu_torch/csrc/shuffle.cu"
     shuffle_tpu = "rusty_sr_tpu/ops/pallas/shuffle.py:20"
-    print(json.dumps({"kernels": [
+    d2s_bytes = 3 * nbytes(main_expand)
+    epi_bytes = 2 * 24 * 242 * 242 * 27 * 4 + 24 * 726 * 726 * 3
+    rows = [
         row("trunk f32", trunk_src, trunk_tpu, launches["f32"],
-            max_err[torch.float32], times[torch.float32]),
+            max_err[torch.float32], times[torch.float32],
+            bound(trunk_flops, trunk_bytes, PEAK_F32)),
         row("trunk bf16", trunk_src, trunk_tpu, launches["bf16"],
-            max_err[torch.bfloat16], times[torch.bfloat16]),
+            max_err[torch.bfloat16], times[torch.bfloat16],
+            bound(trunk_flops, trunk_bytes)),
         row("depth_to_space", shuffle_src, shuffle_tpu, launches["d2s"],
-            d2s_err, times["d2s"]),
+            d2s_err, times["d2s"], bound(0.0, d2s_bytes)),
         row("epilogue u8", shuffle_src, shuffle_tpu, launches["epi"],
-            epi_err, times["epi"]),
-        row("conv_stage", "rusty_sr_tpu_torch/csrc/conv_stage.cu",
-            "scripts/mosaic_probe4.py:49", launches["conv"], conv_err,
-            times["conv"])]}))
+            epi_err, times["epi"], bound(0.0, epi_bytes))]
+    for name, (k_ms, p_ms, l_ms, b_ms, b_by) in stage_rows.items():
+        k = stage_shape[name][0]
+        rows.append(row(
+            f"conv_stage {name}", "rusty_sr_tpu_torch/csrc/conv_stage.cu",
+            "scripts/mosaic_probe5.py:56" if k == 3
+            else "scripts/mosaic_probe4.py:49",
+            shape_launches.get(stage_shape[name], 0), fused_err[name],
+            (k_ms, p_ms), (b_ms, b_by), l_ms))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -145,7 +145,10 @@ def load() -> ctypes.CDLL:
             lib.srt_epilogue.restype = i32
             lib.srt_epilogue_packed.argtypes = [ptr] * 2 + [i32] * 7 + [ptr]
             lib.srt_epilogue_packed.restype = i32
-            lib.srt_conv_stage.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
+            i64 = ctypes.c_longlong
+            lib.srt_conv_stage.argtypes = (
+                [ptr, i64, ptr, ptr, i64] + [i32] * 12
+                + [ptr, ptr, ptr, i64, ptr, i64, ptr, i32, ptr])
             lib.srt_conv_stage.restype = i32
             lib.srt_error_string.argtypes = [i32]
             lib.srt_error_string.restype = ctypes.c_char_p

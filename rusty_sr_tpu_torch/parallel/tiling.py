@@ -31,7 +31,8 @@ import torch
 from rusty_sr_tpu_torch.ops.activations import belu
 from rusty_sr_tpu_torch.ops.color import linear_to_srgb, srgb_to_linear
 from rusty_sr_tpu_torch.ops.conv import bf16_split, conv2d_same
-from rusty_sr_tpu_torch.ops.cuda.conv_stage import conv_stage
+from rusty_sr_tpu_torch.ops.cuda.conv_stage import (Epilogue, FusedStage,
+                                                    conv_stage, prepare_stage)
 from rusty_sr_tpu_torch.ops.cuda.shuffle import (depth_to_space_cuda,
                                                  epilogue_cuda, quantise_u8)
 from rusty_sr_tpu_torch.ops.cuda.trunk import fused_trunk, pack_trunk_weights
@@ -199,17 +200,37 @@ def flat_trunk_params(params, fast: bool) -> dict:
     the fast tier (``fast``) each stage's bf16 weights beside it — convA,
     convB, convC, conv10 rounded, and conv0 as the JAX package's split
     forms: ``conv0_u8`` (the u8-exact input, 256/255 folded in, two-term
-    weight split over duplicated input channels, Cin 6) and ``conv0_f32``
-    (three-term split hi*w_hi + hi*w_lo + lo*w_hi, Cin 9).  CPU tensors."""
+    weight split over duplicated input channels) and ``conv0_f32``
+    (three-term split hi*w_hi + hi*w_lo + lo*w_hi), their input channels
+    zero-padded from 6 and 9 to 8 and 16 (the conv-stage kernel reads
+    whole 16-byte channel groups; zero rows add nothing).  CPU tensors."""
     p = {k: torch.from_numpy(v) for k, v in _np_tree(params).items()}
     if fast:
         u_hi, u_lo = bf16_split(p["conv0"] * (256.0 / 255.0))
         w_hi, w_lo = bf16_split(p["conv0"])
-        p["conv0_u8"] = torch.cat([u_hi, u_lo], dim=2)
-        p["conv0_f32"] = torch.cat([w_hi, w_lo, w_hi], dim=2)
+        p["conv0_u8"] = _pad_cin(torch.cat([u_hi, u_lo], dim=2), 8)
+        p["conv0_f32"] = _pad_cin(torch.cat([w_hi, w_lo, w_hi], dim=2), 16)
         for k in ("convA", "convB", "convC", "conv10"):
             p[k + "_bf16"] = p[k].to(torch.bfloat16)
     return p
+
+
+def _pad_cin(w: torch.Tensor, cin: int) -> torch.Tensor:
+    """HWIO weights with zero input channels appended up to ``cin``."""
+    return torch.nn.functional.pad(w, (0, 0, 0, cin - w.shape[2]))
+
+
+# The conv-stage weights of each tier, packed once for the kernel.
+_FLAT_STAGES = ("conv0_u8", "conv0_f32", "convA_bf16", "convB_bf16",
+                "convC_bf16", "conv10_bf16")
+_PACKED_STAGES = ("W0", "WA", "WB", "WC", "WD")
+
+
+def prepare_stages(tree: dict) -> dict:
+    """The tree with its conv-stage weights packed (`prepare_stage`) on
+    their device, so that no launch repacks them."""
+    return {k: prepare_stage(v) if k in _FLAT_STAGES + _PACKED_STAGES
+            else v for k, v in tree.items()}
 
 
 # --- The xla engine's tile kernels ---
@@ -231,7 +252,6 @@ def _tile_kernel(params, zero_tiles, edge_tiles, mask_tiles, factor: int,
     HR tiles come out uint8."""
     h = HALO
     p = params
-    bf = torch.bfloat16
     zero_u8 = zero_tiles if u8_io else None
     if u8_io:
         zero_tiles = zero_tiles.float() * (1.0 / 255.0)
@@ -240,38 +260,70 @@ def _tile_kernel(params, zero_tiles, edge_tiles, mask_tiles, factor: int,
     x = zero_tiles
     mask = mask_tiles
 
-    def cv(t, name):
-        if fast:
-            return conv_stage(t.to(bf), p[name + "_bf16"], bf).float()
-        return conv2d_same(t, p[name])
-
-    b0, p0 = p["f_bias"], p["f_belu"]
-    if not fast:
-        c0 = conv2d_same(x, p["conv0"])
-    elif zero_u8 is not None:
-        t8 = zero_u8.to(bf) * 2.0 ** -8
-        c0 = conv_stage(torch.cat([t8, t8], dim=-1), p["conv0_u8"])
+    if fast:
+        expand = _flat_fast_trunk(p, x, zero_u8, mask)
     else:
-        hi, lo = bf16_split(x)
-        c0 = conv_stage(torch.cat([hi, hi, lo], dim=-1), p["conv0_f32"])
-    f_ = mask * belu(c0 + b0, p0)
-    n = b0.shape[0]
-    e = p["expand_bias"].shape[0]
-    a = cv(f_, "convA")                                  # conv1|conv2|conv3
-    l1 = mask * belu(a[..., :n] + p["l1_bias"], p["l1_belu"])
-    b = cv(l1, "convB")                                  # conv5|conv6|conv7
-    l2 = mask * belu(a[..., n:2 * n] + b[..., :n] + p["l2_bias"],
-                     p["l2_belu"])
-    c = cv(l2, "convC")                                  # conv8|conv9
-    l3 = mask * belu(a[..., 2 * n:3 * n] + b[..., n:2 * n] + c[..., :n]
-                     + p["l3_bias"], p["l3_belu"])
-    expand = (b[..., 2 * n:2 * n + e] + c[..., n:n + e] + cv(l3, "conv10")
-              + p["expand_bias"])
+        expand = _flat_exact_trunk(p, x, mask)
     base_ph = bilinear_phases_cropped(edge_tiles, factor, h, h, tile)
     # cuDNN may hand back its convs' outputs in either memory format, and
     # the sum follows it; the epilogue kernel reads NHWC densely.
     return epilogue_cuda(expand.contiguous(), factor, tile, h,
                          addend=base_ph, to_u8=u8_io)
+
+
+def _flat_exact_trunk(p, x, mask):
+    """The exact tier's trunk: f32 convs (TF32 off) and f32 glue."""
+    n = p["f_bias"].shape[0]
+    e = p["expand_bias"].shape[0]
+    f_ = mask * belu(conv2d_same(x, p["conv0"]) + p["f_bias"], p["f_belu"])
+    a = conv2d_same(f_, p["convA"])                      # conv1|conv2|conv3
+    l1 = mask * belu(a[..., :n] + p["l1_bias"], p["l1_belu"])
+    b = conv2d_same(l1, p["convB"])                      # conv5|conv6|conv7
+    l2 = mask * belu(a[..., n:2 * n] + b[..., :n] + p["l2_bias"],
+                     p["l2_belu"])
+    c = conv2d_same(l2, p["convC"])                      # conv8|conv9
+    l3 = mask * belu(a[..., 2 * n:3 * n] + b[..., n:2 * n] + c[..., :n]
+                     + p["l3_bias"], p["l3_belu"])
+    return (b[..., 2 * n:2 * n + e] + c[..., n:n + e]
+            + conv2d_same(l3, p["conv10"]) + p["expand_bias"])
+
+
+def _flat_fast_trunk(p, x, zero_u8, mask):
+    """The flat fast tier's trunk: five conv stages with the glue fused
+    into each (`Epilogue`).  conv0 reads the image through a split (the
+    u8-exact k/256 input with split weights, or, for f32 input, the
+    three-term split of image and weights), with its input channels
+    zero-padded to 8 or 16; convA..conv10 round their outputs to bf16,
+    which the BeLUs and the final sum read back in f32; each stage's
+    activation is written into the first channels of its output, which
+    the next stage reads in place."""
+    bf = torch.bfloat16
+    n = p["f_bias"].shape[0]
+    e = p["expand_bias"].shape[0]
+    m = mask.to(bf)
+    if zero_u8 is not None:
+        t8 = zero_u8.to(bf) * 2.0 ** -8
+        x0 = torch.cat([t8, t8, torch.zeros_like(t8[..., :2])], dim=-1)
+        w0 = p["conv0_u8"]
+    else:
+        hi, lo = bf16_split(x)
+        x0 = torch.cat([hi, hi, lo, torch.zeros_like(hi[..., :1]).expand(
+            *hi.shape[:3], 7)], dim=-1)
+        w0 = p["conv0_f32"]
+
+    def act(w, name, addends=()):
+        return FusedStage(w, Epilogue(n, p[name + "_bias"], p[name + "_belu"],
+                                      addends, m))
+
+    f_ = conv_stage(x0, act(w0, "f"), torch.float32)
+    a = conv_stage(f_, act(p["convA_bf16"], "l1"), bf)   # l1 | conv2 | conv3
+    b = conv_stage(a[..., :n], act(p["convB_bf16"], "l2", (a[..., n:],)),
+                   bf)                                   # l2 | conv6 | conv7
+    c = conv_stage(b[..., :n], act(p["convC_bf16"], "l3",
+                                   (a[..., 2 * n:], b[..., n:])), bf)
+    return conv_stage(c[..., :n], FusedStage(p["conv10_bf16"], Epilogue(
+        e, p["expand_bias"], addends=(b[..., 2 * n:], c[..., n:]),
+        act_dtype=torch.float32)), bf)
 
 
 def _pack_s2d(t: torch.Tensor) -> torch.Tensor:
@@ -288,12 +340,16 @@ def _tile_kernel_packed(pp, zero_tiles, edge_tiles, mask_tiles, factor: int,
     uint8: the fast tier with the whole trunk in 2x2 space-to-depth space
     (quarter resolution, 4x channels); ``pp`` from `packed_trunk_params`.
 
-    Five 3x3 stages on the conv-stage kernel: W0 (the split u8-exact
-    conv0) and WD (conv10 plus the bilinear base as extra K rows over the
-    packed edge tiles) in f32 out, WA, WB, WC in bf16 out; every
-    activation is rounded to bf16 after its BeLU.  The sum ((b + c) + d)
-    + bias is taken in f32 in packed space, and the epilogue kernel
-    quantises it, unpacks, crops the halo and shuffles.
+    Five 3x3 stages on the conv-stage kernel, each with its glue fused
+    (`Epilogue`): W0 (the split u8-exact conv0, f32 sums) and WA, WB, WC
+    (bf16 outputs) each write their BeLU activation, rounded to bf16 and
+    masked, into their first 4n channels, which the next stage reads in
+    place; WD (conv10 plus the bilinear base as extra K rows over the
+    packed edge tiles) writes the sum ((b + c) + d) + bias in f32, in
+    packed space.  WC leaves a gap of 24 channels after l3 for the packed
+    edge tiles, so that WD's input [l3, te8, te8] is a prefix of its
+    output.  The epilogue kernel quantises the sum, unpacks, crops the
+    halo and shuffles.
 
     ``zero_tiles=None`` derives the zero-padded tiles on the device as
     edge * mask, which is the same bytes: the two gathers differ only
@@ -301,29 +357,32 @@ def _tile_kernel_packed(pp, zero_tiles, edge_tiles, mask_tiles, factor: int,
     h = HALO
     bf = torch.bfloat16
     ci = edge_tiles.shape[-1]
-    n = pp["f_bias"].shape[0] // 4
-    e = pp["expand_bias"].shape[0] // 4
+    N = pp["f_bias"].shape[0]
+    E = pp["expand_bias"].shape[0]
     te8 = _pack_s2d(edge_tiles).to(bf) * 2.0 ** -8
     m4 = _pack_s2d(mask_tiles).to(bf)
     if zero_tiles is None:
         t8 = te8 * m4.repeat_interleave(ci, dim=-1)
     else:
         t8 = _pack_s2d(zero_tiles).to(bf) * 2.0 ** -8
-    o = conv_stage(torch.cat([t8, t8], dim=-1), pp["W0"])
-    mN = m4.repeat_interleave(n, dim=-1)
-    f_ = belu(o + pp["f_bias"], pp["f_belu"]).to(bf) * mN
-    N = 4 * n
-    a = conv_stage(f_, pp["WA"], bf)
-    l1 = belu(a[..., :N].float() + pp["l1_bias"], pp["l1_belu"]).to(bf) * mN
-    b = conv_stage(l1, pp["WB"], bf)
-    l2 = belu(a[..., N:2 * N].float() + b[..., :N].float() + pp["l2_bias"],
-              pp["l2_belu"]).to(bf) * mN
-    c = conv_stage(l2, pp["WC"], bf)
-    l3 = belu(a[..., 2 * N:3 * N].float() + b[..., N:2 * N].float()
-              + c[..., :N].float() + pp["l3_bias"], pp["l3_belu"]).to(bf) * mN
-    d = conv_stage(torch.cat([l3, te8, te8], dim=-1), pp["WD"])
-    total = (b[..., 2 * N:2 * N + 4 * e].float() + c[..., N:N + 4 * e].float()
-             + d + pp["expand_bias"])
+
+    def act(w, name, addends=(), gap=0):
+        return FusedStage(pp[w], Epilogue(N, pp[name + "_bias"],
+                                          pp[name + "_belu"], addends, m4,
+                                          gap=gap))
+
+    gap = 2 * te8.shape[-1]
+    f_ = conv_stage(torch.cat([t8, t8], dim=-1), act("W0", "f"),
+                    torch.float32)
+    a = conv_stage(f_, act("WA", "l1"), bf)
+    b = conv_stage(a[..., :N], act("WB", "l2", (a[..., N:],)), bf)
+    c = conv_stage(b[..., :N], act("WC", "l3", (a[..., 2 * N:], b[..., N:]),
+                                   gap), bf)
+    c[..., N:N + gap // 2] = te8
+    c[..., N + gap // 2:N + gap] = te8
+    total = conv_stage(c[..., :N + gap], FusedStage(pp["WD"], Epilogue(
+        E, pp["expand_bias"], addends=(b[..., 2 * N:], c[..., N + gap:]),
+        act_dtype=torch.float32)), torch.float32)
     return epilogue_cuda(total, factor, tile, h, to_u8=True, packed=True)
 
 
@@ -408,11 +467,12 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
         run = lambda z, e, m: _tile_kernel_fused(  # noqa: E731
             packed, z, e, m, factor, tile, cd)
     elif use_packed:
-        pp = on_device(packed_trunk_params(params, factor))
+        pp = prepare_stages(on_device(packed_trunk_params(params,
+                                                          factor)))
         run = lambda z, e, m: _tile_kernel_packed(  # noqa: E731
             pp, z, e, m, factor, tile)
     else:
-        fp = on_device(flat_trunk_params(params, fast))
+        fp = prepare_stages(on_device(flat_trunk_params(params, fast)))
         run = lambda z, e, m: _tile_kernel(  # noqa: E731
             fp, z, e, m, factor, tile, fast, u8_io)
 

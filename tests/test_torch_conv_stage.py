@@ -10,10 +10,14 @@ conv-stage and epilogue kernels' device code run on the host.
   rounding of f32 sums that differ can cross a midpoint), with at most
   1e-3 of the values differing.
 - The device code of `csrc/conv_stage.cu`, compiled as plain C++ with
-  one OS thread per CUDA thread and the mma replaced by a scalar
-  emulation of the PTX ISA's m16n8k16 fragment layout, against the plain
-  version at the same bounds; the epilogue of `csrc/shuffle.cu`
-  byte-identical to its plain version.
+  one OS thread per CUDA thread and its Hopper instructions (mbarriers,
+  the TMA load, the bulk copy, wgmma) replaced by scalar stand-ins that
+  read shared memory through the same descriptors, against the plain
+  version at the same bounds; with its fused epilogue, byte-identical to
+  the kernel without it followed by the plain glue.
+- The fused epilogue's plain version, bit for bit the glue the tile
+  kernels ran before it; the padded conv0 weights against the unpadded.
+- The epilogue of `csrc/shuffle.cu` byte-identical to its plain version.
 """
 
 import ctypes
@@ -28,6 +32,7 @@ import torch
 from rusty_sr_tpu.ops.conv import _conv_native, bf16_split as j_split
 from rusty_sr_tpu.params import load_builtin, load_rsr_file
 from rusty_sr_tpu.parallel import tiling as jt
+from rusty_sr_tpu_torch.ops.activations import belu
 from rusty_sr_tpu_torch.ops.conv import bf16_split
 from rusty_sr_tpu_torch.ops.cuda import conv_stage as cs
 from rusty_sr_tpu_torch.ops.cuda import shuffle
@@ -118,16 +123,21 @@ def test_packed_trunk_params_match_jax(factor):
 
 
 def test_flat_fast_weights_match_jax_splits():
-    """The flat fast tier's conv0 weights: JAX's split forms, bit for bit."""
+    """The flat fast tier's conv0 weights: JAX's split forms, bit for bit,
+    followed by zero input channels up to 8 and 16."""
     params = load_builtin("anime")
     p = tiling.flat_trunk_params(params, fast=True)
     w0 = jnp.asarray(params["conv0"])
     hi, lo = j_split(w0 * (256.0 / 255.0))
-    np.testing.assert_array_equal(bits(p["conv0_u8"]),
+    assert p["conv0_u8"].shape[2] == 8 and p["conv0_f32"].shape[2] == 16
+    np.testing.assert_array_equal(bits(p["conv0_u8"][:, :, :6]),
                                   bits(jnp.concatenate([hi, lo], axis=2)))
     hi, lo = j_split(w0)
     np.testing.assert_array_equal(
-        bits(p["conv0_f32"]), bits(jnp.concatenate([hi, lo, hi], axis=2)))
+        bits(p["conv0_f32"][:, :, :9]),
+        bits(jnp.concatenate([hi, lo, hi], axis=2)))
+    assert not p["conv0_u8"][:, :, 6:].float().any()
+    assert not p["conv0_f32"][:, :, 9:].float().any()
     assert "convA_bf16" not in tiling.flat_trunk_params(params, fast=False)
 
 
@@ -224,19 +234,28 @@ def test_epilogue_cpu_tensors_take_the_plain_version():
 
 
 # The conv-stage kernel's device code on the host: one OS thread per CUDA
-# thread, __syncthreads a barrier of the block's 256 threads, and the
-# warp-wide mma an exchange of the 32 lanes' fragments followed by the
-# product of the assembled 16x16 and 16x8 operands (f64 sums of the exact
+# thread, __syncthreads a barrier of the block's 288 threads and the named
+# consumer barrier one of its 256 consumers, and the Hopper instructions
+# replaced by scalar stand-ins: mbarriers with arrival counts, transaction
+# bytes and phases; the TMA load a copy of the box with zero fill outside
+# the tensor; the bulk copy a memcpy; and the wgmma a product that reads A
+# and B from shared memory through the same descriptor fields (start,
+# leading and stride byte offsets of no-swizzle K-major core matrices) and
+# writes the PTX ISA's m64nNk16 accumulator fragment (f64 sums of the exact
 # bf16 products, rounded once to f32 onto the accumulator).
 _CONV_SHIM = _HOST_DEFS.replace(
     "static Dim3 threadIdx{0, 0, 0},", "static thread_local Dim3 threadIdx{0, 0, 0};\nstatic Dim3").replace(
     "static inline void __syncthreads() {}", "") + r"""
 #include <condition_variable>
+#include <map>
 #include <mutex>
 #include <thread>
 #include <vector>
 #define __align__(n)
+#define __grid_constant__
 struct uint4 { unsigned x, y, z, w; };
+static inline float __fsqrt_rn(float x) { return std::sqrt(x); }
+static inline int __shfl_sync(unsigned, int v, int) { return v; }
 class Barrier {
  public:
   explicit Barrier(int n) : n_(n) {}
@@ -257,80 +276,197 @@ class Barrier {
   int n_, count_ = 0;
   long gen_ = 0;
 };
-struct Warp {
-  Barrier bar{32};
-  uint32_t a[32][4], b[32][2];
-};
 static Barrier* block_bar;
-static Warp* warps;
+static Barrier* cons_bar;
 static void __syncthreads() { block_bar->wait(); }
-static float bf(uint32_t word, int half) {
-  const uint32_t u = (half ? word >> 16 : word & 0xffffu) << 16;
+static void consumer_sync() { cons_bar->wait(); }
+static unsigned char* smem_base();
+static uint32_t smem_addr(const void* p) {
+  return (uint32_t)(static_cast<const unsigned char*>(p) - smem_base());
+}
+struct CUtensorMap {
+  const unsigned char* base;
+  long long dim[5], stride[5];
+  int box[5];
+};
+struct HostBar {
+  int expected = 0, pending = 0;
+  long long tx = 0;
+  unsigned phase = 0;
+};
+static std::mutex bar_m;
+static std::condition_variable bar_cv;
+static std::map<uint32_t, HostBar> bars;
+static void bar_check(HostBar& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    ++b.phase;
+    b.pending = b.expected;
+    bar_cv.notify_all();
+  }
+}
+static void mbar_init(uint64_t* bar, int count) {
+  std::lock_guard<std::mutex> lk(bar_m);
+  bars[smem_addr(bar)] = HostBar{count, count, 0, 0};
+}
+static void mbar_fence_init() {}
+static void fence_proxy_async() {}
+static void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> lk(bar_m);
+  HostBar& b = bars.at(smem_addr(bar));
+  b.tx += bytes;
+  --b.pending;
+  bar_check(b);
+}
+static void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> lk(bar_m);
+  HostBar& b = bars.at(smem_addr(bar));
+  --b.pending;
+  bar_check(b);
+}
+static void tx_done(uint64_t* bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> lk(bar_m);
+  HostBar& b = bars.at(smem_addr(bar));
+  b.tx -= bytes;
+  bar_check(b);
+}
+static void mbar_wait(uint64_t* bar, int parity) {
+  std::unique_lock<std::mutex> lk(bar_m);
+  const uint32_t key = smem_addr(bar);
+  bar_cv.wait(lk, [&] { return (int)(bars.at(key).phase & 1u) != parity; });
+}
+static void tma_load_window(void* dst, const CUtensorMap* m, uint64_t* bar,
+                            int c0, int c1, int c2, int c3, int c4) {
+  auto d = static_cast<uint16_t*>(dst);
+  size_t i = 0;
+  for (int i4 = 0; i4 < m->box[4]; ++i4)
+    for (int i3 = 0; i3 < m->box[3]; ++i3)
+      for (int i2 = 0; i2 < m->box[2]; ++i2)
+        for (int i1 = 0; i1 < m->box[1]; ++i1)
+          for (int i0 = 0; i0 < m->box[0]; ++i0, ++i) {
+            const long long g[5] = {c0 + i0, c1 + i1, c2 + i2, c3 + i3,
+                                    c4 + i4};
+            long long off = 0;
+            bool in = true;
+            for (int a = 0; a < 5; ++a) {
+              in = in && g[a] >= 0 && g[a] < m->dim[a];
+              off += g[a] * m->stride[a];
+            }
+            uint16_t v = 0;
+            if (in) std::memcpy(&v, m->base + off, 2);
+            d[i] = v;
+          }
+  tx_done(bar, (uint32_t)(i * 2));
+}
+static void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                      uint64_t* bar) {
+  std::memcpy(dst, src, bytes);
+  tx_done(bar, bytes);
+}
+static void wgmma_fence() {}
+static void wgmma_commit() {}
+// wgmma.wait_group is warpgroup-collective on the card (a group retires
+// once all four warps have issued it), so no thread of a warpgroup runs a
+// ring cycle ahead of the others: a barrier of the warpgroup's threads.
+static Barrier* wg_bars;
+template <int N> static void wgmma_wait() { wg_bars[threadIdx.x / 128].wait(); }
+template <int NI> static void fence_acc(float*) {}
+static float smem_bf16(uint32_t addr) {
+  uint16_t h;
+  std::memcpy(&h, smem_base() + addr, 2);
+  const uint32_t u = (uint32_t)h << 16;
   float f;
   std::memcpy(&f, &u, 4);
   return f;
 }
-static void mma_m16n8k16(float* d, const uint32_t* a, const uint32_t* b) {
-  const int lane = threadIdx.x % 32;
-  Warp& w = warps[threadIdx.x / 32];
-  for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i];
-  w.b[lane][0] = b[0];
-  w.b[lane][1] = b[1];
-  w.bar.wait();
-  float A[16][16], B[16][8];
-  for (int l = 0; l < 32; ++l) {
-    const int g = l / 4, t = l % 4;
-    for (int j = 0; j < 2; ++j) {
-      A[g][2 * t + j] = bf(w.a[l][0], j);
-      A[g + 8][2 * t + j] = bf(w.a[l][1], j);
-      A[g][2 * t + 8 + j] = bf(w.a[l][2], j);
-      A[g + 8][2 * t + 8 + j] = bf(w.a[l][3], j);
-      B[2 * t + j][g] = bf(w.b[l][0], j);
-      B[2 * t + 8 + j][g] = bf(w.b[l][1], j);
-    }
-  }
-  const int g = lane / 4, t = lane % 4;
-  for (int i = 0; i < 4; ++i) {
-    const int row = g + 8 * (i / 2), col = 2 * t + (i & 1);
+// Element (row, k) of a no-swizzle K-major operand under descriptor d.
+static float desc_at(uint64_t d, int row, int k) {
+  const uint32_t start = (uint32_t)(d & 0x3FFF) << 4;
+  const uint32_t lbo = (uint32_t)((d >> 16) & 0x3FFF) << 4;
+  const uint32_t sbo = (uint32_t)((d >> 32) & 0x3FFF) << 4;
+  return smem_bf16(start + (row / 8) * sbo + (k / 8) * lbo + (row % 8) * 16 +
+                   (k % 8) * 2);
+}
+template <int NI>
+static void wgmma_bf16(float* d, uint64_t da, uint64_t db) {
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  for (int i = 0; i < NI / 2; ++i) {
+    const int row = 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
     double s = 0.0;
-    for (int kk = 0; kk < 16; ++kk) s += (double)A[row][kk] * B[kk][col];
+    for (int k = 0; k < 16; ++k)
+      s += (double)desc_at(da, row, k) * desc_at(db, col, k);
     d[i] = (float)((double)d[i] + s);
   }
-  w.bar.wait();
 }
 #include "conv_stage.cu"
-namespace { alignas(16) unsigned char cs_smem[1 << 18]; }
-extern "C" int host_conv_stage(const void* x, const void* w, void* out,
-                               int batch, int h, int wd, int cin, int cout,
-                               int k, int out_bf16, int vec) {
-  if (conv_stage_smem(cin, k) > sizeof(cs_smem)) return 1;
-  Barrier bar(CS_THREADS);
-  std::vector<Warp> ws(CS_THREADS / 32);
+namespace { alignas(128) unsigned char cs_smem[1 << 18]; }
+static unsigned char* smem_base() { return cs_smem; }
+template <int NI, bool B>
+static void run_block(const CUtensorMap& map, const __nv_bfloat16* w,
+                      void* out, long long out_ps, int h, int wd, int cin,
+                      int cout, int k, int nblk, const ConvEpi& epi) {
+  conv_stage_kernel<NI, B>(map, w, out, out_ps, h, wd, cin, cout, k, nblk,
+                           epi);
+}
+template <bool B>
+static void run_ni(int ni, const CUtensorMap& map, const __nv_bfloat16* w,
+                   void* out, long long out_ps, int h, int wd, int cin,
+                   int cout, int k, int nblk, const ConvEpi& epi) {
+  switch (ni) {
+    case 32: run_block<32, B>(map, w, out, out_ps, h, wd, cin, cout, k, nblk, epi); break;
+    case 64: run_block<64, B>(map, w, out, out_ps, h, wd, cin, cout, k, nblk, epi); break;
+    case 96: run_block<96, B>(map, w, out, out_ps, h, wd, cin, cout, k, nblk, epi); break;
+    case 128: run_block<128, B>(map, w, out, out_ps, h, wd, cin, cout, k, nblk, epi); break;
+    case 192: run_block<192, B>(map, w, out, out_ps, h, wd, cin, cout, k, nblk, epi); break;
+  }
+}
+extern "C" int host_conv_stage(
+    const void* x, long long x_ps, const void* w_img, void* out,
+    long long out_ps, int batch, int h, int wd, int cin, int cout, int k,
+    int ni, int out_bf16, int n_act, int gap, int cur_bf16, int act,
+    const void* bias, const void* slope, const void* add0, long long add0_ps,
+    const void* add1, long long add1_ps, const void* mask, int groups) {
+  const Plan pl = make_plan(cin, k, ni);
+  if (pl.smem > sizeof(cs_smem) || cin % 8 || x_ps % 8) return 1;
+  const CUtensorMap map{
+      static_cast<const unsigned char*>(x),
+      {8, wd, h, cin / 8, batch},
+      {2, x_ps * 2, x_ps * 2 * wd, 16, x_ps * 2 * wd * h},
+      {8, CS_COLS + k - 1, k, cin / 8 < 4 ? cin / 8 : 4, 1}};
+  const ConvEpi epi{n_act, gap, cur_bf16, act,
+                    static_cast<const float*>(bias),
+                    static_cast<const float*>(slope),
+                    static_cast<const __nv_bfloat16*>(add0), add0_ps,
+                    static_cast<const __nv_bfloat16*>(add1), add1_ps,
+                    static_cast<const __nv_bfloat16*>(mask), groups};
+  auto w = static_cast<const __nv_bfloat16*>(w_img);
+  const int nblk = (cout + ni - 1) / ni;
+  const long long blocks =
+      (long long)batch * h * ((wd + CS_COLS - 1) / CS_COLS) * nblk;
+  Barrier bar(CS_THREADS), cbar(CS_CONSUMERS);
   block_bar = &bar;
-  warps = ws.data();
+  cons_bar = &cbar;
+  Barrier wgb[CS_WGS] = {Barrier(128), Barrier(128)};
+  wg_bars = wgb;
   blockDim = {(unsigned)CS_THREADS, 1, 1};
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto wb = static_cast<const __nv_bfloat16*>(w);
-  const int nbx = ((h + CS_ROWS - 1) / CS_ROWS) * ((wd + CS_COLS - 1) / CS_COLS);
-  for (int z = 0; z < batch; ++z)
-    for (int y = 0; y < (cout + CS_N - 1) / CS_N; ++y)
-      for (int bx = 0; bx < nbx; ++bx) {
-        blockIdx = {(unsigned)bx, (unsigned)y, (unsigned)z};
-        std::vector<std::thread> th;
-        for (int i = 0; i < CS_THREADS; ++i)
-          th.emplace_back([=] {
-            threadIdx = {(unsigned)i, 0, 0};
-            if (out_bf16 && vec)
-              conv_stage_kernel<true, true>(xb, wb, out, h, wd, cin, cout, k);
-            else if (out_bf16)
-              conv_stage_kernel<true, false>(xb, wb, out, h, wd, cin, cout, k);
-            else if (vec)
-              conv_stage_kernel<false, true>(xb, wb, out, h, wd, cin, cout, k);
-            else
-              conv_stage_kernel<false, false>(xb, wb, out, h, wd, cin, cout, k);
-          });
-        for (auto& t : th) t.join();
-      }
+  for (long long b = 0; b < blocks; ++b) {
+    // NaN bf16 everywhere: a read of shared memory that no copy wrote
+    // poisons the result.
+    std::memset(cs_smem, 0xff, pl.smem);
+    blockIdx = {(unsigned)b, 0, 0};
+    std::vector<std::thread> th;
+    for (int i = 0; i < CS_THREADS; ++i)
+      th.emplace_back([=, &map, &epi] {
+        threadIdx = {(unsigned)i, 0, 0};
+        if (out_bf16)
+          run_ni<true>(ni, map, w, out, out_ps, h, wd, cin, cout, k, nblk,
+                       epi);
+        else
+          run_ni<false>(ni, map, w, out, out_ps, h, wd, cin, cout, k, nblk,
+                        epi);
+      });
+    for (auto& t : th) t.join();
+  }
   return 0;
 }
 """
@@ -340,16 +476,45 @@ extern "C" int host_conv_stage(const void* x, const void* w, void* out,
 def host_conv(tmp_path_factory):
     lib = _compile_shim(tmp_path_factory, "host_conv_stage", _CONV_SHIM,
                         ["-pthread"])
-    lib.host_conv_stage.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-    lib.host_conv_stage.restype = ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.host_conv_stage.argtypes = (
+        [ptr, i64, ptr, ptr, i64] + [i32] * 12
+        + [ptr, ptr, ptr, i64, ptr, i64, ptr, i32])
+    lib.host_conv_stage.restype = i32
     return lib
 
 
-# (k, cin, cout, h, w): every K padding (6, 9, 13 -> 16; 24 -> 32), the
-# 16-byte staging path (cin % 8 == 0), two channel blocks with a ragged
-# tail (130), and ragged rows and columns.
+def host_stage(lib, x, w, out_dtype):
+    """The kernel's device code on the host, called as the wrapper calls
+    the card: ``x`` (a channel slice of a dense buffer) with Cin
+    zero-padded to a multiple of 8, the packed weights (``w`` HWIO or a
+    `FusedStage`), an output buffer whose every byte starts as NaN
+    bits."""
+    hwio, _, epi = cs._split(w)
+    cin = x.shape[-1]
+    cin8 = -(-cin // 8) * 8
+    if cin8 != cin or x.stride(2) % 8:
+        x = torch.nn.functional.pad(x, (0, cin8 - cin)).contiguous()
+        hwio = torch.nn.functional.pad(hwio, (0, 0, 0, cin8 - cin))
+    bsz, h, wd, cin = x.shape
+    k, cout = hwio.shape[0], hwio.shape[3]
+    sw = cs.prepare_stage(hwio.contiguous())
+    out = cs._out_buffer(x, cout, cs._out_dtype(cout, out_dtype, epi), epi)
+    out.view(torch.int16 if out.dtype == torch.bfloat16
+             else torch.int32).fill_(-1)
+    assert lib.host_conv_stage(
+        x.data_ptr(), x.stride(2), sw.image.data_ptr(), out.data_ptr(),
+        out.stride(2), bsz, h, wd, cin, cout, k, sw.ni,
+        int(out.dtype == torch.bfloat16),
+        *cs._epilogue_args(epi, x, cout, out_dtype)) == 0
+    return out
+
+
+# (k, cin, cout, h, w): every K padding (6 -> 8 -> 16, 9 -> 16, 13 -> 16,
+# 24 -> 32), N tiles of 32 to 192 with ragged tails (27, 59, 91, 130),
+# ragged rows and columns, and a row of more than one 128-pixel block.
 HOST_STAGES = [(5, 6, 32, 9, 20), (5, 9, 27, 8, 16), (3, 24, 91, 11, 17),
-               (1, 13, 130, 5, 18), (3, 32, 59, 10, 33)]
+               (1, 13, 130, 5, 18), (3, 32, 59, 3, 133)]
 
 
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
@@ -364,15 +529,8 @@ def test_conv_stage_device_code_on_the_host(host_conv, k, cin, cout, h, w,
     wt = torch.from_numpy(bf16_values(r, (k, k, cin, cout),
                                       1.0 / np.sqrt(k * k * cin))).bfloat16()
     want = cs.conv_stage_reference(x, wt, out_dtype)
-    xr, wr = _raw(x), _raw(wt)
-    out = np.full(want.shape, np.nan, np.float32) \
-        if out_dtype == torch.float32 else np.zeros(want.shape, np.int16)
-    vec = int(cin % 8 == 0 and xr.ctypes.data % 16 == 0)
-    assert host_conv.host_conv_stage(
-        xr.ctypes.data, wr.ctypes.data, out.ctypes.data, 2, h, w, cin, cout,
-        k, int(out_dtype == torch.bfloat16), vec) == 0
-    got = out if out_dtype == torch.float32 else \
-        torch.from_numpy(out).view(torch.bfloat16).float().numpy()
+    got = host_stage(host_conv, x, wt, out_dtype)
+    assert got.shape == want.shape
     assert_stage_close(got, want.float().numpy(), out_dtype)
 
 
@@ -433,3 +591,86 @@ def test_epilogue_device_code_on_the_host(host_epilogue, mode, factor, tile,
                                 3, factor, int(mode == "packed"),
                                 int(mode != "f32"))
     assert out.tobytes() == want.tobytes()
+
+
+# The fused epilogue: its plain version against the glue the tile kernels
+# ran before it was fused, and the kernel's epilogue code on the host.
+from test_torch_cuda import FUSED, fused_case  # noqa: E402
+
+
+def _glue(name, x, w, epi, odt):
+    """The tile kernels' glue as written before it was fused into the
+    stages (bit for bit what `_tile_kernel`/`_tile_kernel_packed` ran)."""
+    bf = torch.bfloat16
+    y = cs.conv_stage_reference(x, w, odt)
+    n, bias, slope = epi.n_act, epi.bias, epi.slope
+    a = [t[..., :n].float() for t in epi.addends]
+    tier, key = name.split("-")
+    if tier == "packed" and key != "WD":
+        mN = epi.mask.repeat_interleave(n // 4, dim=-1)
+        cur = y if key == "W0" else y[..., :n].float()
+        s = cur if not a else (a[0] + cur if len(a) == 1
+                               else a[0] + a[1] + cur)
+        return y, belu(s + bias, slope).to(bf) * mN
+    if key in ("WD", "expand"):
+        return y, a[0] + a[1] + y.float() + bias
+    m = epi.mask.float()
+    if key == "conv0":
+        return y, (m * belu(y + bias, slope)).to(bf)
+    return y, (m * belu(a[0] + a[1] + y[..., :n].float() + bias,
+                        slope)).to(bf)
+
+
+@pytest.mark.parametrize("name", FUSED)
+def test_fused_epilogue_reference_matches_the_glue(name):
+    """`stage_epilogue_reference` is the glue it replaced, bit for bit, on
+    random bf16 activations, addends and masks with the anime weights."""
+    x, w, fused, odt = fused_case(name, torch.device("cpu"), bsz=2, s=9)
+    epi = fused.epilogue
+    got = cs.conv_stage_reference(x, fused, odt)
+    y, want = _glue(name, x, w, epi, odt)
+    n, cout = epi.n_act, w.shape[3]
+    assert got.shape[-1] == cout + epi.gap
+    np.testing.assert_array_equal(bits(got[..., :n].contiguous()),
+                                  bits(want.contiguous()))
+    if n < cout:
+        np.testing.assert_array_equal(
+            bits(got[..., n + epi.gap:].contiguous()),
+            bits(y[..., n:].to(got.dtype).contiguous()))
+
+
+@pytest.mark.parametrize("form,real", [("u8", 6), ("f32", 9)])
+def test_padded_conv0_weights_match_unpadded(form, real):
+    """The flat tier's conv0 with its input channels zero-padded (8, 16)
+    gives the result of the unpadded 6- and 9-channel conv."""
+    p = tiling.flat_trunk_params(load_builtin("anime"), fast=True)
+    w = p["conv0_" + form]
+    r = np.random.default_rng(real)
+    x = torch.from_numpy(r.integers(0, 256, (2, 13, 11, real)).astype(
+        np.float32) / 256.0).bfloat16()
+    xp = torch.nn.functional.pad(x, (0, w.shape[2] - real))
+    got = cs.conv_stage_reference(xp, w)
+    want = cs.conv_stage_reference(x, w[:, :, :real].contiguous())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["packed-WB", "packed-WC", "packed-WD",
+                                  "flat-conv0"])
+def test_fused_epilogue_device_code_on_the_host(host_conv, name):
+    """The kernel's epilogue on the host: byte-identical to the same kernel
+    without it followed by the plain glue, on every written channel; the
+    gap channels are not written (they keep the NaN bits the buffer
+    starts with)."""
+    x, w, fused, odt = fused_case(name, torch.device("cpu"), bsz=1, s=5)
+    epi = fused.epilogue
+    got = host_stage(host_conv, x, fused, odt)
+    plain = host_stage(host_conv, x, w, odt)
+    want = cs.stage_epilogue_reference(plain, epi, torch.empty_like(got))
+    n, gap, cout = epi.n_act, epi.gap, w.shape[3]
+    for sl in (slice(0, n), slice(n + gap, cout + gap)):
+        np.testing.assert_array_equal(bits(got[..., sl].contiguous()),
+                                      bits(want[..., sl].contiguous()))
+    if gap:
+        assert (got[..., n:n + gap].contiguous().view(torch.int16)
+                == -1).all()

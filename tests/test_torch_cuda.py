@@ -13,6 +13,9 @@ Tolerances (chip_smoke.py holds the main path's shapes to the same):
   later stages carry that ulp (tests/test_torch_trunk.py);
 - depth-to-space and the epilogue: byte-identical (one f32 add per
   element and the same quantisation arithmetic on both sides);
+- conv stage with a fused epilogue: byte-identical to the same kernel
+  without it followed by the plain glue (the same accumulators, the same
+  f32 operations in the same order);
 - conv stage: f32 out within 1e-5 of the largest output (exact bf16
   products, f32 sums in another order and in the tensor cores'
   accumulator); bf16 out within that bound plus one bf16 ulp (the
@@ -29,6 +32,8 @@ import torch
 
 from rusty_sr_tpu_torch.api import upscale
 from rusty_sr_tpu_torch.ops.cuda import conv_stage, shuffle, trunk
+from rusty_sr_tpu_torch.ops.cuda.conv_stage import Epilogue, FusedStage
+from rusty_sr_tpu_torch.parallel import tiling
 from rusty_sr_tpu_torch.params import init_params, load_builtin
 from rusty_sr_tpu_torch.utils.imageio import to_u8
 
@@ -327,3 +332,106 @@ def test_cuda_conv_stage_and_epilogue_reject_bad_inputs(cuda_device):
         shuffle.epilogue_cuda(e.double(), 3, 6, 7, add)
     with pytest.raises(ValueError):
         shuffle.epilogue_cuda(e, 3, 6, 7, add, packed=True)
+
+
+FUSED = ["packed-W0", "packed-WA", "packed-WB", "packed-WC", "packed-WD",
+         "flat-conv0", "flat-convC", "flat-expand"]
+
+
+def fused_case(name, dev, bsz=2, s=21):
+    """(x, weights, FusedStage, out dtype) of one stage form, with the
+    anime weights and random bf16 activations, addends and masks."""
+    g = torch.Generator(device="cpu").manual_seed(len(name) * 7 + bsz)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def r(c):
+        return torch.randn((bsz, s, s, c), generator=g).to(bf).to(dev)
+
+    def mask(groups):
+        return (torch.rand((bsz, s, s, groups), generator=g) > 0.2).to(
+            bf).to(dev)
+
+    anime = load_builtin("anime")
+    tier, key = name.split("-")
+    if tier == "packed":
+        p = {k: v.to(dev) for k, v in
+             tiling.packed_trunk_params(anime, 3).items()}
+        N, E, m = 128, 108, mask(4)
+        forms = {
+            "W0": (r(24), "W0", Epilogue(N, p["f_bias"], p["f_belu"], (),
+                                         m), f32),
+            "WA": (r(N), "WA", Epilogue(N, p["l1_bias"], p["l1_belu"], (),
+                                        m), bf),
+            "WB": (r(N), "WB", Epilogue(N, p["l2_bias"], p["l2_belu"],
+                                        (r(384)[..., N:],), m), bf),
+            "WC": (r(N), "WC", Epilogue(N, p["l3_bias"], p["l3_belu"],
+                                        (r(384)[..., 2 * N:],
+                                         r(368)[..., N:]), m, gap=24), bf),
+            "WD": (r(152), "WD", Epilogue(E, p["expand_bias"],
+                                          addends=(r(368)[..., 2 * N:],
+                                                   r(264)[..., 152:]),
+                                          act_dtype=f32), f32)}
+    else:
+        p = {k: v.to(dev) for k, v in
+             tiling.flat_trunk_params(anime, True).items()}
+        n, e, m = 32, 27, mask(1)
+        forms = {
+            "conv0": (r(8), "conv0_u8", Epilogue(n, p["f_bias"],
+                                                 p["f_belu"], (), m), f32),
+            "convC": (r(n), "convC_bf16", Epilogue(
+                n, p["l3_bias"], p["l3_belu"],
+                (r(96)[..., 2 * n:], r(96)[..., n:]), m), bf),
+            "expand": (r(n), "conv10_bf16", Epilogue(
+                e, p["expand_bias"], addends=(r(96)[..., 2 * n:],
+                                              r(64)[..., n:]),
+                act_dtype=f32), bf)}
+    x, wkey, epi, odt = forms[key]
+    return x, p[wkey], FusedStage(p[wkey], epi), odt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FUSED)
+def test_cuda_fused_stage_is_byte_identical(cuda_device, name):
+    """The kernel with its epilogue against the same kernel without it
+    followed by the plain glue on the card, on every written channel; and
+    the gap left as it was."""
+    x, w, fused, odt = fused_case(name, cuda_device)
+    epi = fused.epilogue
+    before = conv_stage.LAUNCHES
+    got = conv_stage.conv_stage(x, fused, odt)
+    plain = conv_stage.conv_stage(x, w, odt)
+    torch.cuda.synchronize()
+    assert conv_stage.LAUNCHES == before + 2
+    cout = w.shape[3]
+    want = conv_stage.stage_epilogue_reference(
+        plain, epi, torch.empty_like(got))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    n, gap = epi.n_act, epi.gap
+    for sl in (slice(0, n), slice(n + gap, cout + gap)):
+        a, b = got[..., sl], want[..., sl]
+        assert torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8)), sl
+
+
+@pytest.mark.cuda
+def test_cuda_conv_stage_rejects_bad_epilogues(cuda_device):
+    x, w, fused, odt = fused_case("packed-WC", cuda_device, bsz=1, s=8)
+    epi = fused.epilogue
+    add0, add1 = epi.addends
+    bad = [
+        dict(addends=(add0.float(), add1)),                  # dtype
+        dict(addends=(add0.transpose(1, 2), add1)),          # strides
+        dict(addends=(add0[:, :4], add1)),                   # shape
+        dict(addends=(add0[..., :64], add1)),                # too few channels
+        dict(mask=epi.mask[..., :3].contiguous()),           # 3 groups of 128
+        dict(mask=epi.mask.float()),
+        dict(bias=epi.bias.double()),
+        dict(bias=epi.bias[:64]),
+        dict(act_dtype=torch.float32),    # f32 activations beside bf16 convs
+        dict(gap=-8),
+        dict(n_act=w.shape[3] + 1)]
+    import dataclasses
+    for change in bad:
+        stage = FusedStage(w, dataclasses.replace(epi, **change))
+        with pytest.raises((TypeError, ValueError)):
+            conv_stage.conv_stage(x, stage, odt)
