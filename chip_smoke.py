@@ -41,7 +41,10 @@ Phases, each fatal on failure:
 5. time each kernel, its plain version and, where one exists, the one
    PyTorch call for the same function (cuDNN's bf16 conv for the conv
    stage) with CUDA events, in turns, beside its bound (the larger of
-   its operations over the card's peak and its bytes over 3.35 TB/s);
+   its operations over the card's peak for the route its kernel takes:
+   the FMA units for the f32 trunk, the tensor cores for bf16; and its
+   bytes over 3.35 TB/s); as a reference figure, cuDNN's five trunk
+   convs alone at the trunk's stage extents in each mode's type;
    time one 24-tile chunk of each fast tier with the fused stages and
    with the plain glue between unfused stages (byte-identical outputs);
    and the CLI runs on the host clock.
@@ -630,7 +633,18 @@ def main() -> int:
         if not err_whole <= TOL:
             fail(f"tiled {engine} path vs whole image: {err_whole} > {TOL}")
 
-    # 5. Times at the main path's shapes, in turns.
+    # 5. Times at the main path's shapes, in turns.  The trunk's work on a
+    # 24 x 256^2 chunk: stage extents 252, 248, 246, 244, 242 (the halo
+    # shrinks by each conv's radius); K and N per stage.  Its bound: the
+    # f32 kernel runs on the FMA units (67 TFLOP/s), the bf16 kernel on the
+    # tensor cores.
+    ext = ((252, 5, 3, 32), (248, 5, 32, 96), (246, 3, 32, 91),
+           (244, 3, 32, 59), (242, 3, 32, 27))
+    trunk_flops = sum(2.0 * 24 * s_ * s_ * k_ * k_ * c_ * n_
+                      for s_, k_, c_, n_ in ext)
+    trunk_bytes = nbytes(main_x, main_m) + 24 * 242 * 242 * 27 * 4
+    trunk_bound = {torch.float32: bound(trunk_flops, trunk_bytes, PEAK_F32),
+                   torch.bfloat16: bound(trunk_flops, trunk_bytes)}
     times = {}
     for dtype, pk in ((torch.float32, packed3),
                       (torch.bfloat16, packed3_bf16)):
@@ -638,9 +652,38 @@ def main() -> int:
             lambda: trunk.fused_trunk_reference(pk, main_x, main_m, 3),
             lambda: trunk.fused_trunk(pk, main_x, main_m, 3))
         mode = "f32" if dtype == torch.float32 else "bf16"
+        b_ms, b_by = trunk_bound[dtype]
         print(f"{mode} trunk, 24 x 256^2 tiles: kernel {times[dtype][0]:.3f} "
-              f"ms, plain {times[dtype][1]:.3f} ms per call (CUDA events, "
-              f"2 x 10 calls each; {card})")
+              f"ms, plain {times[dtype][1]:.3f} ms, bound {b_ms:.3f} ms "
+              f"({b_by}; {b_ms / times[dtype][0]:.1%} reached) per call "
+              f"(CUDA events, 2 x 10 calls each; {card})")
+    # A reference figure, not the same function (so no library_ms): cuDNN's
+    # five convs alone at the trunk's stage extents, in the mode's type
+    # (f32 with TF32 off; bf16 channels-last), with no glue between them.
+    import torch.nn.functional as F
+    from rusty_sr_tpu_torch.ops.conv import exact_f32
+    for dtype in (torch.float32, torch.bfloat16):
+        mf = torch.channels_last if dtype == torch.bfloat16 else \
+            torch.contiguous_format
+        ins = [torch.randn((24, c_, s_ + k_ - 1, s_ + k_ - 1), generator=gen)
+               .to(dev, dtype).contiguous(memory_format=mf)
+               for s_, k_, c_, _ in ext]
+        ws = [(torch.randn((n_, c_, k_, k_), generator=gen) * 0.05)
+              .to(dev, dtype).contiguous(memory_format=mf)
+              for _, k_, c_, n_ in ext]
+
+        def five():
+            for xi, wi in zip(ins, ws):
+                F.conv2d(xi, wi)
+        with exact_f32():
+            five()
+            five()
+            ms_ = (cuda_time_ms(five) + cuda_time_ms(five)) / 2
+        mode = "f32 (TF32 off)" if dtype == torch.float32 else "bf16"
+        print(f"cuDNN's five trunk convs alone, {mode}, 24 x 256^2 tiles: "
+              f"{ms_:.3f} ms per chunk (no glue; a reference figure, not "
+              f"the fused function; CUDA events, 2 x 10 calls; {card})")
+        del ins, ws
     times["d2s"] = time_in_turns(
         lambda: shuffle.depth_to_space_reference(main_expand, 3, main_base),
         lambda: shuffle.depth_to_space_cuda(main_expand, 3,
@@ -785,12 +828,6 @@ def main() -> int:
                 "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library}
 
-    # The trunk's work on a 24 x 256^2 chunk: stage extents 252, 248, 246,
-    # 244, 242 (the halo shrinks by each conv's radius); K and N per stage.
-    ext = ((252, 25 * 3, 32), (248, 25 * 32, 96), (246, 9 * 32, 91),
-           (244, 9 * 32, 59), (242, 9 * 32, 27))
-    trunk_flops = sum(2.0 * 24 * s_ * s_ * k_ * n_ for s_, k_, n_ in ext)
-    trunk_bytes = nbytes(main_x, main_m) + 24 * 242 * 242 * 27 * 4
     trunk_src = "rusty_sr_tpu_torch/csrc/trunk.cu"
     trunk_tpu = "rusty_sr_tpu/ops/pallas/trunk.py:134"
     shuffle_src = "rusty_sr_tpu_torch/csrc/shuffle.cu"
@@ -800,10 +837,10 @@ def main() -> int:
     rows = [
         row("trunk f32", trunk_src, trunk_tpu, launches["f32"],
             max_err[torch.float32], times[torch.float32],
-            bound(trunk_flops, trunk_bytes, PEAK_F32)),
+            trunk_bound[torch.float32]),
         row("trunk bf16", trunk_src, trunk_tpu, launches["bf16"],
             max_err[torch.bfloat16], times[torch.bfloat16],
-            bound(trunk_flops, trunk_bytes)),
+            trunk_bound[torch.bfloat16]),
         row("depth_to_space", shuffle_src, shuffle_tpu, launches["d2s"],
             d2s_err, times["d2s"], bound(0.0, d2s_bytes)),
         row("epilogue u8", shuffle_src, shuffle_tpu, launches["epi"],

@@ -73,7 +73,8 @@
 //
 // The Hopper-only instructions sit in a handful of __device__ functions
 // (mbarrier init/arrive/wait, the TMA load, the bulk copy, the wgmma fence,
-// commit, wait and the wgmma itself, the named barrier).  With those
+// commit, wait and the wgmma itself, the named barrier), shared with the
+// trunk kernel in hopper.cuh.  With those
 // supplied by the includer (scalar stand-ins that read shared memory
 // through the same descriptors) and a few macros for the CUDA keywords, the
 // kernel compiles as plain C++ and runs on a host with one OS thread per
@@ -86,12 +87,15 @@
 #endif
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int CS_MT = 64;                      // pixels per wgmma M tile
 constexpr int CS_WGS = 2;                      // consumer warpgroups
 constexpr int CS_COLS = CS_MT * CS_WGS;        // output pixels per block
 constexpr int CS_CONSUMERS = 128 * CS_WGS;
+static_assert(CS_CONSUMERS == HOPPER_CONSUMERS, "consumer_sync joins them");
 constexpr int CS_THREADS = CS_CONSUMERS + 32;  // + one producer warp
 constexpr int CS_KC = 32;                      // channels per K chunk
 constexpr int CS_STEPS = 8;                    // k16 steps per ring slot
@@ -147,16 +151,6 @@ __device__ __host__ __forceinline__ int chunk_steps(int cin_pad, int j) {
   return rest < 2 ? rest : 2;
 }
 
-// A wgmma shared-memory matrix descriptor, no swizzle: start address,
-// leading byte offset (between the two k8 core matrices of a k16 step)
-// and stride byte offset (between 8-row groups), each >> 4.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr >> 4) & 0x3FFFu) |
-         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32);
-}
-
 __device__ __forceinline__ float rn_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
@@ -182,83 +176,6 @@ __device__ __forceinline__ float belu_rn(float x, float p) {
       -1.0f);
 }
 
-#ifdef __CUDACC__
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
-        "%2; selp.u32 %0, 1, 0, p; }"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-// Generic-proxy writes to shared memory made visible to the async proxy
-// (TMA and wgmma).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-__device__ __forceinline__ void tma_load_window(void* dst,
-                                                const CUtensorMap* map,
-                                                uint64_t* bar, int c0, int c1,
-                                                int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3),
-      "r"(c4)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// The 256 consumer threads only (the producer warp may have left).
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(CS_CONSUMERS) : "memory");
-}
-template <int NI>
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < NI / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int NI>
-__device__ void wgmma_bf16(float* d, uint64_t da, uint64_t db);
-#include "conv_stage_wgmma.cuh"
-#endif
 
 // x viewed through `map`; w_img the packed B images; out (batch, h, wd)
 // pixels of stride out_ps elements.  Grid: x over (pixel tile, N block)

@@ -1,7 +1,119 @@
-// wgmma.mma_async m64nNk16, bf16 A and B from shared memory (K-major,
-// no-swizzle descriptors), f32 accumulators: one specialisation per
-// width N the conv-stage kernel uses.  Included by conv_stage.cu on
-// the device only.
+// The Hopper (sm_90a) helpers that the kernels built on wgmma, TMA and
+// mbarriers share (csrc/conv_stage.cu, csrc/trunk.cu): the wgmma
+// shared-memory matrix descriptor, mbarrier init/arrive/wait, the async
+// proxy fence, the TMA window load and the 1-d bulk copy, the wgmma fence,
+// commit and wait, the 256-thread consumer barrier, the accumulator fence
+// and copy, and wgmma.mma_async m64nNk16 with bf16 A and B from shared
+// memory (K-major, no-swizzle descriptors) and f32 accumulators, one
+// specialisation per width N the kernels use.
+//
+// Only make_desc and HOPPER_CONSUMERS are visible to a host compiler: a
+// host build of a kernel supplies scalar stand-ins for the rest
+// (tests/test_torch_conv_stage.py) before it includes the kernel.
+
+#pragma once
+#include <cstdint>
+
+// A wgmma shared-memory matrix descriptor, no swizzle: start address,
+// leading byte offset (between the two k8 core matrices of a k16 step)
+// and stride byte offset (between 8-row groups), each >> 4.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFFu) |
+         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32);
+}
+
+// Threads of the two consumer warpgroups that consumer_sync() joins.
+constexpr int HOPPER_CONSUMERS = 256;
+
+#ifdef __CUDACC__
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (TMA and wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void tma_load_window(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int c0, int c1,
+                                                int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// The 256 consumer threads only (the producer warp may have left).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(HOPPER_CONSUMERS) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across a
+// wgmma fence, commit or wait.
+template <int NI>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < NI / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The accumulators copied into other registers, for code that reads them
+// on divergent paths (read there directly, ptxas inserts a warpgroup
+// arrive on that path and serialises every wgmma: C7520).
+template <int NI>
+__device__ __forceinline__ void copy_acc(float* dst, const float* d) {
+#pragma unroll
+  for (int i = 0; i < NI / 2; ++i)
+    asm volatile("mov.b32 %0, %1;" : "=f"(dst[i]) : "f"(d[i]));
+}
+
+template <int NI>
+__device__ void wgmma_bf16(float* d, uint64_t da, uint64_t db);
 
 template <>
 __device__ __forceinline__ void wgmma_bf16<32>(float* d, uint64_t da,
@@ -119,3 +231,5 @@ __device__ __forceinline__ void wgmma_bf16<192>(float* d, uint64_t da,
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(da), "l"(db), "r"(1));
 }
+
+#endif  // __CUDACC__

@@ -134,9 +134,10 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            for name in ("srt_trunk_f32", "srt_trunk_bf16"):
-                getattr(lib, name).argtypes = [ptr] * 17 + [i32] * 5 + [ptr]
-                getattr(lib, name).restype = i32
+            lib.srt_trunk_f32.argtypes = [ptr] * 17 + [i32] * 5 + [ptr]
+            lib.srt_trunk_f32.restype = i32
+            lib.srt_trunk_bf16.argtypes = [ptr] * 13 + [i32] * 5 + [ptr]
+            lib.srt_trunk_bf16.restype = i32
             lib.srt_depth_to_space_f32.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
             lib.srt_depth_to_space_f32.restype = i32
             lib.srt_depth_to_space_u8.argtypes = [ptr] * 2 + [i32] * 5 + [ptr]

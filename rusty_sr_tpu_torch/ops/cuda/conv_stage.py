@@ -39,7 +39,7 @@ SHAPE_LAUNCHES: dict = {}
 
 _OUT = (torch.float32, torch.bfloat16)
 # The kernel's N tile widths (output channels per block; csrc/
-# conv_stage_wgmma.cuh); wider stages are split over N blocks.
+# hopper.cuh); wider stages are split over N blocks.
 _WIDTHS = (32, 64, 96, 128, 192)
 
 

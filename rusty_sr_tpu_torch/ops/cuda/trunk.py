@@ -7,7 +7,10 @@ fast tier).  `fused_trunk` runs the hand-written CUDA kernel
 `csrc/trunk.cu` on CUDA tensors and its plain PyTorch version
 `fused_trunk_reference` on CPU tensors; on any other device, or on a
 build or launch failure, it raises.  `LAUNCHES` counts the kernel's
-launches per mode.
+launches per mode.  The f32 mode runs on an FMA core that stages the
+padded weight rows (`"<name>_padded"`) through shared memory; the bf16
+mode on the tensor cores (wgmma), which read the weights packed once into
+the B operand's image (`"w_mma"`, `mma_image`).
 
 Layouts: tiles are NHWC, (B, S + 2*HALO, S + 2*HALO, C), zero-padded,
 with a (B, S + 2*HALO, S + 2*HALO, 1) {0,1} mask that is 1 inside the
@@ -46,6 +49,11 @@ _VECS = ("f_bias", "f_belu", "l1_bias", "l1_belu", "l2_bias", "l2_belu",
 # Kernel entry points by mode.
 _ENTRY = {torch.float32: "srt_trunk_f32", torch.bfloat16: "srt_trunk_bf16"}
 
+# The bf16 kernel's N chunks.  This and _stage_geometry must match
+# csrc/trunk.cu's TB_MAXN and tb_plan (the host test of the kernel runs it
+# on the image that mma_image packs).
+_MAXN = 96
+
 
 def _padded(w: torch.Tensor) -> torch.Tensor:
     """A (K, N) matrix with its columns zero-padded to a multiple of _WPAD,
@@ -56,6 +64,43 @@ def _padded(w: torch.Tensor) -> torch.Tensor:
     return w if w.data_ptr() % 16 == 0 else w.clone()
 
 
+def _stage_geometry(cimg: int, n: int, e: int):
+    """(matrix, taps, channels a tap, columns) of each stage as the bf16
+    kernel runs it: conv0's 5 dx taps of a row read as 5*cimg channels."""
+    return (("w0", 5, 5 * cimg, n), ("wA", 25, n, 3 * n),
+            ("wB", 9, n, 2 * n + e), ("wC", 9, n, n + e), ("wD", 9, n, e))
+
+
+def _chunks(ncol: int):
+    """(first column, width) of each N chunk of a stage: widths of at
+    most 96, the last one rounded up to a multiple of 32."""
+    w = -(-ncol // 32) * 32
+    return [(c0, min(_MAXN, w - c0)) for c0 in range(0, w, _MAXN)]
+
+
+def mma_image_len(cimg: int, n: int, e: int) -> int:
+    """Elements of `mma_image` for these widths."""
+    return sum(taps * -(-cin // 16) * 16 * -(-ncol // 32) * 32
+               for _, taps, cin, ncol in _stage_geometry(cimg, n, e))
+
+
+def mma_image(mats: dict, cimg: int, n: int, e: int) -> torch.Tensor:
+    """The bf16 matrices as the wgmma B operand's shared-memory image, in
+    the order the kernel streams it: per stage, per N chunk, per k16 step
+    (tap-major, 16 channels a step) the no-swizzle K-major core matrices
+    [k8 half][column][8].  K pads to a multiple of 16 and N to the chunk
+    width with zeros."""
+    parts = []
+    for name, taps, cin, ncol in _stage_geometry(cimg, n, e):
+        kpad = -(-cin // 16) * 16
+        w = mats[name].reshape(taps, cin, ncol)
+        w = F.pad(w, (0, -(-ncol // 32) * 32 - ncol, 0, kpad - cin))
+        for c0, width in _chunks(ncol):
+            b = w[:, :, c0:c0 + width].reshape(taps, kpad // 16, 2, 8, width)
+            parts.append(b.permute(0, 1, 2, 4, 3).reshape(-1))
+    return torch.cat(parts).contiguous()
+
+
 def pack_trunk_weights(params, factor: int = 3,
                        dtype: torch.dtype = torch.float32) -> dict:
     """HWIO conv weights -> (kh*kw*Cin, Cout) matrices of ``dtype``
@@ -63,8 +108,10 @@ def pack_trunk_weights(params, factor: int = 3,
     (conv1|2|3 -> wA, conv5|6|7 -> wB, conv8|9 -> wC), and the bias/BeLU
     vectors as (1, N) float32 — the JAX packer's dict, bit for bit.
 
-    Each matrix also comes kernel-ready under ``"<name>_padded"``: its
-    columns zero-padded once here, so no launch copies weights.  Takes a
+    The kernel's weight forms are made once here, so no launch copies
+    weights: in f32 each matrix also comes as ``"<name>_padded"``, its
+    columns zero-padded; in bf16 the matrices come as the tensor-core
+    kernel's B operand image, ``"w_mma"`` (`mma_image`).  Takes a
     raw or a merged (`models.sr_net.merge_params`) tree of arrays or
     tensors; the result stays on the tree's device."""
     from rusty_sr_tpu_torch.models.sr_net import merge_params
@@ -95,8 +142,11 @@ def pack_trunk_weights(params, factor: int = 3,
            "wD": flat(p["conv10"])}
     for k in _VECS:
         out[k] = p[k].reshape(1, -1).contiguous()
-    for k in _MATS:
-        out[k + "_padded"] = _padded(out[k])
+    if dtype == torch.float32:
+        for k in _MATS:
+            out[k + "_padded"] = _padded(out[k])
+    else:
+        out["w_mma"] = mma_image(out, cin, out["w0"].shape[1], e)
     return out
 
 
@@ -117,8 +167,8 @@ def _mode(packed, compute_dtype) -> torch.dtype:
 
 def fused_trunk_reference(packed, x: torch.Tensor, mask: torch.Tensor,
                           factor: int = 3,
-                          compute_dtype: torch.dtype | None = None
-                          ) -> torch.Tensor:
+                          compute_dtype: torch.dtype | None = None,
+                          exact_sums: bool = False) -> torch.Tensor:
     """Plain PyTorch `expand` for zero-padded tiles: the kernel's math on
     whole tiles.  ``compute_dtype`` defaults to the packed matrices'.
 
@@ -128,7 +178,11 @@ def fused_trunk_reference(packed, x: torch.Tensor, mask: torch.Tensor,
     c after its own BeLU has read it in f32 — and every convolution sums
     exact products of those values in f32.  The convolutions run on f32
     tensors that hold bf16 values: a bf16 `conv2d` would round each stage
-    output before its BeLU, where the Pallas kernel does not."""
+    output before its BeLU, where the Pallas kernel does not.
+
+    With ``exact_sums`` each convolution sums in float64 and rounds once to
+    f32, the rest unchanged: a witness for the error of the f32 sums, this
+    function's and the kernel's."""
     cd = _mode(packed, compute_dtype)
     n = packed["f_bias"].shape[-1]
     e = x.shape[-1] * factor * factor
@@ -139,8 +193,11 @@ def fused_trunk_reference(packed, x: torch.Tensor, mask: torch.Tensor,
     def v(name):
         return packed[name].reshape(1, -1, 1, 1)
 
-    def w(name):
-        return rnd(packed[name].float())
+    def conv(t, name, k):
+        wt = rnd(packed[name].float())
+        if exact_sums:
+            return _conv_valid(t.double(), wt.double(), k).float()
+        return _conv_valid(t, wt, k)
 
     xt = rnd(x.permute(0, 3, 1, 2))
     mt = mask.permute(0, 3, 1, 2)
@@ -154,18 +211,18 @@ def fused_trunk_reference(packed, x: torch.Tensor, mask: torch.Tensor,
         return t[:, :, k:t.shape[2] - k, k:t.shape[3] - k]
 
     with exact_f32():
-        f = act(_conv_valid(xt, w("w0"), 5), "f", 2)
-        a = _conv_valid(f, w("wA"), 5)
+        f = act(conv(xt, "w0", 5), "f", 2)
+        a = conv(f, "wA", 5)
         l1 = act(a[:, :n], "l1", 4)
         a = rnd(a)
-        b = _conv_valid(l1, w("wB"), 3)
+        b = conv(l1, "wB", 3)
         l2 = act(inner(a[:, n:2 * n], 1) + b[:, :n], "l2", 5)
         b = rnd(b)
-        c = _conv_valid(l2, w("wC"), 3)
+        c = conv(l2, "wC", 3)
         l3 = act(inner(a[:, 2 * n:3 * n], 2) + inner(b[:, n:2 * n], 1)
                  + c[:, :n], "l3", 6)
         c = rnd(c)
-        d = _conv_valid(l3, w("wD"), 3)
+        d = conv(l3, "wD", 3)
         expand = (inner(b[:, 2 * n:2 * n + e], 2) + inner(c[:, n:n + e], 1)
                   + d + v("expand_bias"))
     return expand.permute(0, 2, 3, 1).contiguous()
@@ -182,6 +239,11 @@ def _check(name: str, t: torch.Tensor, shape, device,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _aligned(name: str, t: torch.Tensor) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} does not start on a 16-byte boundary")
 
 
 def fused_trunk(packed, x: torch.Tensor, mask: torch.Tensor,
@@ -221,12 +283,17 @@ def fused_trunk(packed, x: torch.Tensor, mask: torch.Tensor,
                           ("wB", 9 * n, 2 * n + e), ("wC", 9 * n, n + e),
                           ("wD", 9 * n, e)):
         _check(name, packed[name], (k, cols), dev, cd)
-        wp = packed[name + "_padded"]
-        _check(name + "_padded", wp, (k, -(-cols // _WPAD) * _WPAD), dev,
+        if cd == torch.float32:
+            _check(name + "_padded", packed[name + "_padded"],
+                   (k, -(-cols // _WPAD) * _WPAD), dev, cd)
+            _aligned(name + "_padded", packed[name + "_padded"])
+    if cd == torch.bfloat16:
+        if "w_mma" not in packed:
+            raise ValueError("the bf16 kernel needs the weights' B operand "
+                             "image, w_mma (pack_trunk_weights)")
+        _check("w_mma", packed["w_mma"], (mma_image_len(cin, n, e),), dev,
                cd)
-        if wp.data_ptr() % 16:
-            raise ValueError(f"{name}_padded does not start on a 16-byte "
-                             "boundary")
+        _aligned("w_mma", packed["w_mma"])
     for name in _VECS:
         _check(name, packed[name], (1, e if name == "expand_bias" else n),
                dev)
@@ -235,9 +302,10 @@ def fused_trunk(packed, x: torch.Tensor, mask: torch.Tensor,
         return out
     from rusty_sr_tpu_torch.ops.cuda import _build
     lib = _build.load()
+    mats = ([packed[k + "_padded"] for k in _MATS] if cd == torch.float32
+            else [packed["w_mma"]])
     ptrs = [t.data_ptr() for t in
-            (x, mask, *(packed[k + "_padded"] for k in _MATS),
-             *(packed[k] for k in _VECS), out)]
+            (x, mask, *mats, *(packed[k] for k in _VECS), out)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, _ENTRY[cd])(*ptrs, bsz, s, cin, n, e,

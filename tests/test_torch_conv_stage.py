@@ -243,7 +243,9 @@ def test_epilogue_cpu_tensors_take_the_plain_version():
 # leading and stride byte offsets of no-swizzle K-major core matrices) and
 # writes the PTX ISA's m64nNk16 accumulator fragment (f64 sums of the exact
 # bf16 products, rounded once to f32 onto the accumulator).
-_CONV_SHIM = _HOST_DEFS.replace(
+# The stand-ins are shared with the trunk kernel's host test
+# (tests/test_torch_trunk.py); the includer defines smem_base().
+_HOPPER_STANDINS = _HOST_DEFS.replace(
     "static Dim3 threadIdx{0, 0, 0},", "static thread_local Dim3 threadIdx{0, 0, 0};\nstatic Dim3").replace(
     "static inline void __syncthreads() {}", "") + r"""
 #include <condition_variable>
@@ -398,6 +400,9 @@ static void wgmma_bf16(float* d, uint64_t da, uint64_t db) {
     d[i] = (float)((double)d[i] + s);
   }
 }
+"""
+
+_CONV_SHIM = _HOPPER_STANDINS + r"""
 #include "conv_stage.cu"
 namespace { alignas(128) unsigned char cs_smem[1 << 18]; }
 static unsigned char* smem_base() { return cs_smem; }

@@ -48,6 +48,23 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def params_for(factor):
+    """anime at x3, random init at x2, the factor-4 fixture (e = 48)."""
+    if factor == 4:
+        import os
+        from rusty_sr_tpu_torch.params import load_rsr_file
+        return load_rsr_file(os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "fixtures", "factor4.rsr"), 4)
+    return load_builtin("anime") if factor == 3 else init_params(7, 2)
+
+
+# (factor, S, seed): sides 13, 11 and 23 that are multiples of neither
+# kernel's block (f32 12x12; bf16 8 rows of up to 22 columns, 21 at
+# factor 3), 24 that fills whole f32 blocks and whole bf16 block rows, 45
+# that spans several blocks of both, factor 4.
+TRUNK_CASES = [(3, 13, 3), (3, 24, 4), (2, 11, 5), (4, 23, 6), (3, 45, 7)]
+
+
 def tiles(seed, bsz, s):
     """Zero-padded tiles; the odd ones hold an image corner that ends
     inside the tile, so their mask zeroes a ring on two sides."""
@@ -65,9 +82,9 @@ def tiles(seed, bsz, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("factor,s,seed", [(3, 13, 3), (3, 24, 4), (2, 11, 5)])
+@pytest.mark.parametrize("factor,s,seed", TRUNK_CASES)
 def test_cuda_kernel_matches_plain_version(cuda_device, factor, s, seed):
-    params = load_builtin("anime") if factor == 3 else init_params(7, 2)
+    params = params_for(factor)
     x, m = tiles(seed, 3, s)
     packed = {k: v.to(cuda_device)
               for k, v in trunk.pack_trunk_weights(params, factor).items()}
@@ -83,9 +100,9 @@ def test_cuda_kernel_matches_plain_version(cuda_device, factor, s, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("factor,s,seed", [(3, 13, 3), (3, 24, 4), (2, 11, 5)])
+@pytest.mark.parametrize("factor,s,seed", TRUNK_CASES)
 def test_cuda_bf16_kernel_matches_plain_version(cuda_device, factor, s, seed):
-    params = load_builtin("anime") if factor == 3 else init_params(7, 2)
+    params = params_for(factor)
     x, m = tiles(seed, 3, s)
     x = np.round(x * 255.0) / np.float32(255.0)     # the CLI's u8 values
     packed = {k: v.to(cuda_device) for k, v in trunk.pack_trunk_weights(
@@ -185,9 +202,29 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
         trunk.fused_trunk(bf16, x.half(), m, 3)
     with pytest.raises(ValueError):
         trunk.fused_trunk(bf16, x.transpose(1, 2), m, 3)
-    with pytest.raises(TypeError):
-        trunk.fused_trunk(dict(bf16, wB_padded=bf16["wB_padded"].float()),
-                          x, m, 3)
+    # the kernels' weight forms: the f32 padded rows, the bf16 B image
+    with pytest.raises(ValueError):
+        trunk.fused_trunk(dict(packed, wB_padded=packed["wB_padded"][:, :88]
+                               .contiguous()), x, m, 3)
+    img = bf16["w_mma"]
+    shifted = torch.empty(img.numel() + 8, device=cuda_device,
+                          dtype=img.dtype)[1:1 + img.numel()]
+    shifted.copy_(img)
+    bad = [(TypeError, dict(bf16, w_mma=img.float())),             # dtype
+           (ValueError, dict(bf16, w_mma=img[:-8].contiguous())),  # layout
+           (ValueError, dict(bf16, w_mma=img.reshape(-1, 8))),     # layout
+           (ValueError, dict(bf16, w_mma=shifted)),                # aligned
+           (ValueError, {k: v for k, v in bf16.items() if k != "w_mma"}),
+           (ValueError, dict(bf16, w_mma=img.cpu()))]
+    for err, pk in bad:
+        with pytest.raises(err):
+            trunk.fused_trunk(pk, x, m, 3)
+    shifted32 = torch.empty(packed["wA_padded"].numel() + 4,
+                            device=cuda_device)[1:].view(-1)[
+        :packed["wA_padded"].numel()].view(packed["wA_padded"].shape)
+    shifted32.copy_(packed["wA_padded"])
+    with pytest.raises(ValueError, match="16-byte"):
+        trunk.fused_trunk(dict(packed, wA_padded=shifted32), x, m, 3)
 
 
 @pytest.mark.cuda

@@ -136,21 +136,26 @@ def bits(t):
 @pytest.mark.parametrize("factor,dtype", [(2, "float32"), (3, "float32"),
                                           (2, "bfloat16"), (3, "bfloat16")])
 def test_packed_weights_match_jax(factor, dtype):
-    """The JAX packer's dict, bit for bit, plus each matrix padded for
-    the kernel once at packing time."""
+    """The JAX packer's dict, bit for bit, plus the kernel's weight forms
+    made once at packing time: each matrix padded (f32), or the B operand
+    image (bf16)."""
     params = load_builtin("anime") if factor == 3 else init_params(7, 2)
     got = trunk.pack_trunk_weights(params, factor, getattr(torch, dtype))
     want = j_pack({k: jnp.asarray(v) for k, v in params.items()}, factor,
                   dtype=getattr(jnp, dtype))
-    assert sorted(got) == sorted(list(want)
-                                 + [k + "_padded" for k in trunk._MATS])
+    extra = (["w_mma"] if dtype == "bfloat16" else
+             [k + "_padded" for k in trunk._MATS])
+    assert sorted(got) == sorted(list(want) + extra)
     for k in want:
         assert got[k].dtype == (getattr(torch, dtype) if k in trunk._MATS
                                 else torch.float32)
         np.testing.assert_array_equal(bits(got[k]), bits(want[k]))
-    for k in trunk._MATS:
-        assert torch.equal(got[k + "_padded"],
-                           trunk._padded(got[k]))
+    if dtype == "float32":
+        for k in trunk._MATS:
+            assert torch.equal(got[k + "_padded"], trunk._padded(got[k]))
+    else:
+        e = 3 * factor * factor
+        assert torch.equal(got["w_mma"], trunk.mma_image(got, 3, 32, e))
 
 
 def test_packing_takes_merged_trees_and_tensors():
@@ -254,32 +259,83 @@ static inline __nv_bfloat16 __float2bfloat16(float f) {
 }
 """
 
-_TRUNK_SHIM = _HOST_DEFS + r"""
+# The trunk kernels' device code runs on the host with the conv stage's
+# Hopper stand-ins (tests/test_torch_conv_stage.py: one OS thread per CUDA
+# thread, mbarriers, the bulk copy, wgmma through its descriptors, the
+# warpgroup-collective wgmma wait), cp.async and the accumulator copy as
+# memcpy, rsqrtf as 1 / sqrt, and shared memory
+# poisoned with NaN bits before every block.
+_TRUNK_SHIM_TAIL = r"""
+template <int NI> static void copy_acc(float* dst, const float* d) {
+  std::memcpy(dst, d, NI / 2 * sizeof(float));
+}
+static inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+static void cp_async16(void* d, const void* s) { std::memcpy(d, s, 16); }
+static void cp_async_commit() {}
+static void cp_async_wait_all() {}
 #include "trunk.cu"
-namespace { float smem[1 << 20]; }
-template <class T>
-static void run(const void* const* p, float* out, int batch, int S,
-                int cimg, int n, int e) {
-  auto f = [&](int i) { return static_cast<const float*>(p[i]); };
-  auto w = [&](int i) { return static_cast<const T*>(p[i]); };
-  const int nb = (S + Mode<T>::R - 1) / Mode<T>::R;
-  for (int z = 0; z < batch; ++z)
-    for (int y = 0; y < nb; ++y)
-      for (int x = 0; x < nb; ++x) {
-        blockIdx = {(unsigned)x, (unsigned)y, (unsigned)z};
-        trunk_kernel<T>(f(0), f(1), w(2), w(3), w(4), w(5), w(6), f(7),
-                        f(8), f(9), f(10), f(11), f(12), f(13), f(14), f(15),
-                        out, S, cimg, n, e);
+namespace {
+alignas(128) unsigned char tk_smem[1 << 18];
+alignas(16) float smem[1 << 16];
+}
+static unsigned char* smem_base() { return tk_smem; }
+template <class K>
+static void run_grid(int threads, int consumers, unsigned gx, unsigned gy,
+                     unsigned gz, K kernel) {
+  Barrier bar(threads), cbar(consumers);
+  Barrier wgb[2] = {Barrier(128), Barrier(128)};
+  block_bar = &bar;
+  cons_bar = &cbar;
+  wg_bars = wgb;
+  blockDim = {(unsigned)threads, 1, 1};
+  for (unsigned z = 0; z < gz; ++z)
+    for (unsigned y = 0; y < gy; ++y)
+      for (unsigned x = 0; x < gx; ++x) {
+        std::memset(tk_smem, 0xff, sizeof(tk_smem));
+        std::memset(smem, 0xff, sizeof(smem));
+        blockIdx = {x, y, z};
+        std::vector<std::thread> th;
+        for (int i = 0; i < threads; ++i)
+          th.emplace_back([=] {
+            threadIdx = {(unsigned)i, 0, 0};
+            kernel();
+          });
+        for (auto& t : th) t.join();
       }
 }
-extern "C" void host_trunk(int bf16, const void* const* p, float* out,
-                           int batch, int S, int cimg, int n, int e) {
-  if (bf16)
-    run<__nv_bfloat16>(p, out, batch, S, cimg, n, e);
-  else
-    run<float>(p, out, batch, S, cimg, n, e);
+// p: x, mask, then the five padded f32 matrices (f32) or the B operand
+// image (bf16), then the nine vectors.
+extern "C" int host_trunk(int bf16, const void* const* p, float* out,
+                          int batch, int S, int cimg, int n, int e) {
+  auto f = [&](int i) { return static_cast<const float*>(p[i]); };
+  // The launchers' choices of weight rows (f32) and block columns (bf16).
+  if (!bf16) {
+    const int wch = f32_rows(cimg, n, e);
+    if (wch < 1 || FGeom::smem_bytes(cimg, n, e, wch) > sizeof(smem))
+      return 1;
+    const unsigned g = (unsigned)ceil_div(S, F_R);
+    run_grid(F_THREADS, F_THREADS, g, g, (unsigned)batch, [&] {
+      trunk_f32_kernel(f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(7), f(8),
+                       f(9), f(10), f(11), f(12), f(13), f(14), f(15), out, S,
+                       cimg, n, e, wch);
+    });
+    return 0;
+  }
+  const int C = bf16_cols(n, e, cimg);
+  if (C < 1 || tb_plan(n, e, cimg, TB_R, C).smem > sizeof(tk_smem))
+    return 1;
+  auto img = static_cast<const __nv_bfloat16*>(p[2]);
+  const TPlan pl = tb_plan(n, e, cimg, TB_R, C);
+  run_grid(TB_THREADS, HOPPER_CONSUMERS, (unsigned)ceil_div(S, C),
+           (unsigned)ceil_div(S, TB_R), (unsigned)batch, [&] {
+             trunk_bf16_kernel(f(0), f(1), img, f(3), f(4), f(5), f(6), f(7),
+                               f(8), f(9), f(10), f(11), out, S, cimg, n, e,
+                               pl);
+           });
+  return 0;
 }
 """
+
 
 _SHUFFLE_SHIM = _HOST_DEFS + r"""
 #include "shuffle.cu"
@@ -319,7 +375,9 @@ def _compile_shim(tmp_path_factory, name, code, extra=()):
 
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    lib = _compile_shim(tmp_path_factory, "host_kernel", _TRUNK_SHIM)
+    from test_torch_conv_stage import _HOPPER_STANDINS
+    lib = _compile_shim(tmp_path_factory, "host_kernel",
+                        _HOPPER_STANDINS + _TRUNK_SHIM_TAIL, ["-pthread"])
     lib.host_trunk.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                ctypes.c_void_p] + [ctypes.c_int] * 5
     return lib
@@ -332,31 +390,107 @@ def _raw(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.numpy())
 
 
-@pytest.mark.parametrize("factor,s,seed,dtype", [
-    (3, 13, 6, "float32"), (2, 11, 7, "float32"),
-    (3, 13, 6, "bfloat16"), (2, 11, 7, "bfloat16")])
-def test_kernel_device_code_on_the_host(host_kernel, factor, s, seed, dtype):
+def params_for(factor, width=32):
+    if width != 32:
+        return init_params(9, factor, width=width)
+    if factor == 4:
+        from rusty_sr_tpu_torch.params import load_rsr_file
+        return load_rsr_file(os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "fixtures", "factor4.rsr"), 4)
+    return load_builtin("anime") if factor == 3 else init_params(7, 2)
+
+
+def host_trunk(lib, packed, x, m, factor):
+    """The kernel of the packed weights' mode, its device code run on the
+    host over the whole grid, as the wrapper launches it on the card."""
+    bf16 = packed["w0"].dtype == torch.bfloat16
+    mats = ([_raw(packed["w_mma"])] if bf16 else
+            [_raw(packed[k + "_padded"]) for k in trunk._MATS])
+    arrays = [x, m] + mats + [packed[k].numpy() for k in trunk._VECS]
+    ptrs = (ctypes.c_void_p * len(arrays))(*[a.ctypes.data for a in arrays])
+    e = 3 * factor * factor
+    out = np.full((x.shape[0], x.shape[1] - 2 * H, x.shape[2] - 2 * H, e),
+                  np.nan, np.float32)
+    assert lib.host_trunk(int(bf16), ptrs, out.ctypes.data, x.shape[0],
+                          out.shape[1], x.shape[3],
+                          packed["f_bias"].shape[-1], e) == 0
+    return out
+
+
+# (factor, S, seed, mode, trunk width): factors 2, 3 and 4 (every N chunk
+# width of the bf16 kernel), sides that are multiples of neither kernel's
+# block, and a width of 40 (a K padding plane in bf16).
+HOST_CASES = [(3, 13, 6, "float32", 32), (2, 11, 7, "float32", 32),
+              (4, 9, 8, "float32", 32), (2, 10, 9, "float32", 40),
+              (3, 13, 6, "bfloat16", 32), (2, 11, 7, "bfloat16", 32),
+              (4, 9, 8, "bfloat16", 32), (2, 10, 9, "bfloat16", 40)]
+
+
+@pytest.mark.parametrize("factor,s,seed,dtype,width", HOST_CASES)
+def test_kernel_device_code_on_the_host(host_kernel, factor, s, seed, dtype,
+                                        width):
     """The kernel's own code against its plain version: f32 at 1e-5 (the
     bound used on the card; the sums run in the kernel's order), bf16 at
     the bf16 gates above (a sum in another order can flip a rounding)."""
     bf16 = dtype == "bfloat16"
-    params = load_builtin("anime") if factor == 3 else init_params(7, 2)
     x, m = tiles(seed, 3, s, True)
     if bf16:
         x = u8_valued(x)
-    packed = trunk.pack_trunk_weights(params, factor, getattr(torch, dtype))
+    packed = trunk.pack_trunk_weights(params_for(factor, width), factor,
+                                      getattr(torch, dtype))
     want = trunk.fused_trunk_reference(packed, torch.from_numpy(x),
                                        torch.from_numpy(m), factor).numpy()
-    arrays = [x, m] + [_raw(packed[k + "_padded"]) for k in trunk._MATS] + \
-        [packed[k].numpy() for k in trunk._VECS]
-    ptrs = (ctypes.c_void_p * len(arrays))(*[a.ctypes.data for a in arrays])
-    out = np.full(want.shape, np.nan, np.float32)
-    host_kernel.host_trunk(int(bf16), ptrs, out.ctypes.data, 3, s, 3,
-                           packed["f_bias"].shape[-1], 3 * factor * factor)
+    out = host_trunk(host_kernel, packed, x, m, factor)
     if bf16:
         assert_bf16_close(out, want)
     else:
         np.testing.assert_allclose(out, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reference_with_exact_sums(dtype):
+    """exact_sums changes only the convolutions' sums (float64, rounded
+    once to f32): f32 out, within the f32 bound or the bf16 gates of the
+    plain version, and not equal to it."""
+    x, m = tiles(4, 2, 13, True)
+    if dtype == "bfloat16":
+        x = u8_valued(x)
+    packed = trunk.pack_trunk_weights(load_builtin("anime"), 3,
+                                      getattr(torch, dtype))
+    xt, mt = torch.from_numpy(x), torch.from_numpy(m)
+    plain = trunk.fused_trunk_reference(packed, xt, mt, 3)
+    exact = trunk.fused_trunk_reference(packed, xt, mt, 3, exact_sums=True)
+    assert exact.dtype == torch.float32 and exact.shape == plain.shape
+    assert not torch.equal(exact, plain)
+    if dtype == "bfloat16":
+        assert_bf16_close(plain.numpy(), exact.numpy())
+    else:
+        np.testing.assert_allclose(plain.numpy(), exact.numpy(), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_device_code_against_exact_sums(host_kernel, dtype):
+    """The kernel's own code holds the same bounds against the plain
+    version with exact sums as against the plain version.  In bf16 it is
+    the closer of the two to exact sums, since the host's wgmma stand-in
+    rounds each instruction's sum once: its rounding points are the plain
+    version's."""
+    x, m = tiles(5, 3, 13, True)
+    if dtype == "bfloat16":
+        x = u8_valued(x)
+    packed = trunk.pack_trunk_weights(load_builtin("anime"), 3,
+                                      getattr(torch, dtype))
+    xt, mt = torch.from_numpy(x), torch.from_numpy(m)
+    exact = trunk.fused_trunk_reference(packed, xt, mt, 3,
+                                        exact_sums=True).numpy()
+    out = host_trunk(host_kernel, packed, x, m, 3)
+    if dtype == "bfloat16":
+        assert_bf16_close(out, exact)
+        plain = trunk.fused_trunk_reference(packed, xt, mt, 3).numpy()
+        assert np.abs(out - exact).mean() <= np.abs(plain - exact).mean()
+    else:
+        np.testing.assert_allclose(out, exact, atol=1e-5, rtol=0)
 
 
 @pytest.fixture(scope="module")
@@ -393,8 +527,39 @@ def test_shuffle_device_code_on_the_host(host_shuffle, factor, shape, dtype):
     assert out.tobytes() == want.tobytes()
 
 
+@pytest.mark.parametrize("factor,width", [(3, 32), (4, 32), (2, 40)])
+def test_mma_image_layout(factor, width):
+    """Each element of the bf16 kernel's B operand image is the weight the
+    kernel's k16 step reads there: per stage, per N chunk of at most 96
+    columns, per (tap, 16 channels) step, [k8 half][column][8]; conv0's
+    taps are its 5 rows, each 5 * cimg channels; zeros pad K and N."""
+    params = init_params(3, factor, width=width)
+    pk = trunk.pack_trunk_weights(params, factor, torch.bfloat16)
+    n, e, cimg = width, 3 * factor * factor, 3
+    img = pk["w_mma"].float().numpy()
+    assert img.size == trunk.mma_image_len(cimg, n, e)
+    off = 0
+    for name, taps, cin, ncol in trunk._stage_geometry(cimg, n, e):
+        w = pk[name].float().numpy().reshape(taps, cin, ncol)
+        kpad = -(-cin // 16) * 16
+        for c0, width_ in trunk._chunks(ncol):
+            assert width_ % 32 == 0 and width_ <= 96
+            steps = taps * kpad // 16
+            blk = img[off:off + steps * 16 * width_].reshape(
+                taps, kpad // 16, 2, width_, 8)
+            off += steps * 16 * width_
+            ref = np.zeros((taps, kpad, width_), np.float32)
+            cols = min(width_, ncol - c0)
+            ref[:, :cin, :cols] = w[:, :, c0:c0 + cols]
+            got = blk.transpose(0, 1, 2, 4, 3).reshape(taps, kpad, width_)
+            np.testing.assert_array_equal(got, ref)
+    assert off == img.size
+
+
 def test_build_is_keyed_on_the_sources(tmp_path, monkeypatch):
     from rusty_sr_tpu_torch.ops.cuda import _build
+    # the shared Hopper header is part of the key
+    assert os.path.join(_build.CSRC, "hopper.cuh") in _build._sources()
     assert _build.library_path().startswith(_build.BUILD_DIR)
     assert _build.library_path() == _build.library_path()
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))
