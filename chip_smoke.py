@@ -12,8 +12,8 @@ Phases, each fatal on failure:
    the shapes the main paths give it (anime weights, factor 3, a chunk of
    24 tiles of 256^2 padded) plus ragged odd tiles and factor 2: the
    trunk in f32 (atol 1e-5) and in bf16 (max 1e-2, mean 1e-4); the
-   depth-to-space kernel (byte-identical) in f32 with the addend and in
-   u8; the conv-stage kernel at the packed fast tier's five stages (24
+   depth-to-space kernel (byte-identical) in u8 and f32; the conv-stage
+   kernel at the packed fast tier's five stages (24
    tiles of 128^2 packed), the flat fast tier's six convs (24 x 255^2)
    and the shapes of the TPU conv-stage probes (f32 out within 1e-5 of
    the largest plain output; bf16 out within that plus 1 bf16 ulp, with
@@ -21,13 +21,15 @@ Phases, each fatal on failure:
    epilogue as the fast tiers run it (byte-identical to the kernel
    without it followed by the plain glue; against cuDNN plus the plain
    glue, at most 1e-3 of the values beyond 1e-5 of the largest plus 1
-   bf16 ulp); the epilogue (byte-identical) in u8 and in f32 with the
-   halo crop and the base, and in the packed form;
+   bf16 ulp); the epilogue (byte-identical), which computes the bilinear
+   base from the edge tiles: the xla tiers' form (halo crop, base from
+   u8 or f32 edge tiles, u8 or f32 out), the fused engine's (crop offset
+   0, f32 edge tiles), the packed form, and ragged factor-2 cases;
 4. run the CLI end to end on a synthetic 1024x768 PNG, each path with
    the launch counts set to 0 just before it and read just after:
-   ``--engine fused -p anime`` (the f32 trunk and the shuffle ran; within
+   ``--engine fused -p anime`` (the f32 trunk and the epilogue ran; within
    1 u8 code of the same run through the plain versions), ``--engine
-   fused --fast`` (the bf16 trunk and the shuffle ran; within 4 codes of
+   fused --fast`` (the bf16 trunk and the epilogue ran; within 4 codes of
    the plain run, and at least 45 dB and at most 8 codes against the
    exact tier); the default engine, xla, exact (the epilogue ran; within
    1 code of the plain run and of the fused engine), ``--fast`` (the
@@ -47,7 +49,12 @@ Phases, each fatal on failure:
    convs alone at the trunk's stage extents in each mode's type;
    time one 24-tile chunk of each fast tier with the fused stages and
    with the plain glue between unfused stages (byte-identical outputs);
-   and the CLI runs on the host clock.
+   one 24-tile chunk of the xla exact tier, the flat fast tier and the
+   fused exact engine as they run now and as they ran with the plain
+   bilinear base and casts (emulated: the plain base, then the epilogue
+   kernel given the base in place of ``expand``, which moves one f32
+   tile-sized read fewer than the earlier kernel's addend form did); and
+   the CLI runs on the host clock.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel (the conv stage once per stage of each fast tier) with
@@ -250,25 +257,28 @@ def main() -> int:
     packed3 = packs(anime, 3, torch.float32)
     packed3_bf16 = packs(anime, 3, torch.bfloat16)
     main_expand = trunk.fused_trunk(packed3, main_x, main_m, 3)
-    main_base = bilinear_phases_cropped(main_e, 3, tiling.HALO, tiling.HALO,
-                                        242)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
+
+    def same_bytes(got, want):
+        return (got.shape == want.shape and got.dtype == want.dtype
+                and torch.equal(got.contiguous().view(torch.uint8),
+                                want.contiguous().view(torch.uint8)))
+
+    # The bilinear mode's chunk: 24 tiles of 240^2, u8 (and f32 for f32
+    # images) phases.
+    d2s_main = torch.randint(0, 256, (24, 240, 240, 27), generator=gen,
+                             dtype=torch.uint8).to(dev)
     d2s_cases = [
-        ("f32 + addend, (24, 242, 242, 27)", main_expand, main_base, 3),
-        ("u8, (24, 240, 240, 27)",
-         torch.randint(0, 256, (24, 240, 240, 27), generator=gen,
-                       dtype=torch.uint8).to(dev), None, 3),
-        ("f32 + addend, f=2 ragged (6, 61, 47, 12)",
-         torch.randn((6, 61, 47, 12), generator=gen).to(dev),
+        ("u8, (24, 240, 240, 27)", d2s_main, 3),
+        ("f32, (24, 240, 240, 27)", d2s_main.float() / 255.0, 3),
+        ("f32, f=2 ragged (6, 61, 47, 12)",
          torch.randn((6, 61, 47, 12), generator=gen).to(dev), 2)]
     d2s_err = 0.0
-    for name, x, add, f in d2s_cases:
-        got = shuffle.depth_to_space_cuda(x, f, addend=add)
-        want = shuffle.depth_to_space_reference(x, f, add)
+    for name, x, f in d2s_cases:
+        got = shuffle.depth_to_space_cuda(x, f)
+        want = shuffle.depth_to_space_reference(x, f)
         torch.cuda.synchronize()
-        same = (got.shape == want.shape and got.dtype == want.dtype
-                and bool((got.view(torch.uint8) == want.view(torch.uint8))
-                         .all()))
+        same = same_bytes(got, want)
         if same:
             d2s_err = max(d2s_err, float((got.float() - want.float()).abs()
                                          .max()))
@@ -442,33 +452,45 @@ def main() -> int:
             fail(f"fused stage {name}: outside its bounds")
     del got, unfused, want, ref
 
-    # The epilogue: the exact tier's u8 and f32 forms (crop + base), the
-    # packed tier's quantise-unpack form, and a ragged factor-2 case.
+    # The epilogue, which computes the base from the edge tiles: the xla
+    # tiers' form (crop 7, the CLI image's u8 edge tiles, u8 out; f32 edge
+    # tiles and out for f32 images), the fused engine's (the trunk's
+    # expand at crop offset 0, f32 edge tiles), the packed tier's
+    # quantise-unpack form, and ragged factor-2 cases of both.
     h = tiling.HALO
 
     def near_unit(shape):
         return (torch.randn(shape, generator=gen) * 0.4 + 0.5).to(dev)
 
+    xl_chunk = [torch.from_numpy(np.pad(
+        t, ((0, 24 - t.shape[0]),) + ((0, 0),) * 3)).to(dev)
+        for t in tiling._gather_u8_range(lr, 242, h, nx, 0, ny * nx)]
     epi_x = near_unit((24, 256, 256, 27))
-    epi_add = (torch.randn((24, 242, 242, 27), generator=gen) * 0.1).to(dev)
     epi_packed = near_unit((24, 128, 128, 108))
-    epi_cases = [
-        ("u8, crop 7 + base, (24, 256, 256, 27) -> 726^2", epi_x, 3, 242,
-         dict(addend=epi_add, to_u8=True)),
-        ("f32, crop 7 + base, (24, 256, 256, 27) -> 726^2", epi_x, 3, 242,
-         dict(addend=epi_add)),
-        ("packed u8, (24, 128, 128, 108) -> 726^2", epi_packed, 3, 242,
-         dict(to_u8=True, packed=True)),
-        ("u8 f=2 ragged, (6, 75, 75, 12) -> 122^2", near_unit((6, 75, 75, 12)),
-         2, 61, dict(addend=(torch.randn((6, 61, 61, 12), generator=gen)
-                             * 0.1).to(dev), to_u8=True))]
+    e2_u8 = torch.randint(0, 256, (6, 75, 75, 3), generator=gen,
+                          dtype=torch.uint8).to(dev)
+    epi_cases = {   # name -> (x, factor, tile, crop offset, kwargs)
+        "xla u8": ("u8 edge tiles, crop 7, (24, 256, 256, 27) -> u8 726^2",
+                   epi_x, 3, 242, h, dict(edge=xl_chunk[1], to_u8=True)),
+        "xla f32": ("f32 edge tiles, crop 7, (24, 256, 256, 27) -> f32 "
+                    "726^2", epi_x, 3, 242, h, dict(edge=main_e)),
+        "fused": ("fused engine: expand (24, 242, 242, 27) + base of f32 "
+                  "edge tiles -> f32 726^2", main_expand, 3, 242, 0,
+                  dict(edge=main_e)),
+        "packed": ("packed u8, (24, 128, 128, 108) -> 726^2", epi_packed, 3,
+                   242, h, dict(to_u8=True, packed=True)),
+        "xla u8 f=2": ("u8 f=2 ragged, (6, 75, 75, 12) + u8 edge tiles -> "
+                       "122^2", near_unit((6, 75, 75, 12)), 2, 61, h,
+                       dict(edge=e2_u8, to_u8=True)),
+        "fused f=2": ("fused f=2 ragged, (6, 61, 61, 12) + f32 edge tiles -> "
+                      "f32 122^2", near_unit((6, 61, 61, 12)), 2, 61, 0,
+                      dict(edge=e2_u8.float() / 255.0))}
     epi_err = 0.0
-    for name, x, f, tile, kw in epi_cases:
-        got = shuffle.epilogue_cuda(x, f, tile, h, **kw)
-        want = shuffle.epilogue_reference(x, f, tile, h, **kw)
+    for name, x, f, tile, off, kw in epi_cases.values():
+        got = shuffle.epilogue_cuda(x, f, tile, off, **kw)
+        want = shuffle.epilogue_reference(x, f, tile, off, **kw)
         torch.cuda.synchronize()
-        same = (got.shape == want.shape and got.dtype == want.dtype
-                and torch.equal(got.view(torch.uint8), want.view(torch.uint8)))
+        same = same_bytes(got, want)
         if same:
             epi_err = max(epi_err, float((got.float() - want.float()).abs()
                                          .max()))
@@ -524,6 +546,7 @@ def main() -> int:
 
     hr_mpix = lr.shape[0] * 3 * lr.shape[1] * 3 / 1e6
     launches = {"f32": 0, "bf16": 0, "d2s": 0, "epi": 0, "conv": 0}
+    epi_launches = {"xla u8": 0, "fused": 0, "packed": 0}
     stage_shape = {name: (fs.hwio.shape[0], fs.hwio.shape[2],
                           fs.hwio.shape[3])
                    for name, (_, fs, _) in forms.items()}
@@ -537,9 +560,9 @@ def main() -> int:
         src = out("lr.png")
         imageio.save_image_u8(src, lr)
         # (tier, flags, kernels that must launch, bound vs the plain run)
-        runs = (("fused exact", ["--engine", "fused"], ("f32", "d2s"), 1),
+        runs = (("fused exact", ["--engine", "fused"], ("f32", "epi"), 1),
                 ("fused fast", ["--engine", "fused", "--fast"],
-                 ("bf16", "d2s"), 4),
+                 ("bf16", "epi"), 4),
                 ("xla exact", [], ("epi",), 1),
                 ("xla fast", ["--fast"], ("conv", "epi"), 4),
                 ("xla fast flat", ["--fast", "--tile", "241"],
@@ -568,6 +591,9 @@ def main() -> int:
                     fail(f"the CLI {tier} run launched no {stage} stage")
             for k in launches:
                 launches[k] += n[k]
+            form = ("fused" if tier.startswith("fused") else
+                    "packed" if tier == "xla fast" else "xla u8")
+            epi_launches[form] += n["epi"]
             for key, v in n["shapes"].items():
                 shape_launches[key] = shape_launches.get(key, 0) + v
             run_plain(argv + [out(f"{name}_plain.png")], tier)
@@ -684,20 +710,44 @@ def main() -> int:
               f"{ms_:.3f} ms per chunk (no glue; a reference figure, not "
               f"the fused function; CUDA events, 2 x 10 calls; {card})")
         del ins, ws
+    # The shuffle kernel's forms: the bilinear mode's u8 rearrangement
+    # beside the one PyTorch call for it (a strided copy), and each
+    # epilogue form of the main paths.  Bound: the bytes the function must
+    # move (the window of x it reads, the (tile+2)^2 edge window, the
+    # output) over 3.35 TB/s.
+    def d2s_library(x, f):
+        n_, h_, w_, c_ = x.shape
+        v = x.view(n_, h_, w_, f, f, c_ // (f * f)).permute(0, 1, 3, 2, 4, 5)
+        return lambda: v.contiguous()
+
     times["d2s"] = time_in_turns(
-        lambda: shuffle.depth_to_space_reference(main_expand, 3, main_base),
-        lambda: shuffle.depth_to_space_cuda(main_expand, 3,
-                                            addend=main_base))
-    print(f"depth-to-space(base + expand), (24, 242, 242, 27) f32: kernel "
-          f"{times['d2s'][0]:.3f} ms, plain {times['d2s'][1]:.3f} ms per "
-          f"call (CUDA events, 2 x 10 calls each; {card})")
-    name, x, f, tile, kw = epi_cases[0]
-    times["epi"] = time_in_turns(
-        lambda: shuffle.epilogue_reference(x, f, tile, h, **kw),
-        lambda: shuffle.epilogue_cuda(x, f, tile, h, **kw))
-    print(f"epilogue, {name}: kernel {times['epi'][0]:.3f} ms, plain "
-          f"{times['epi'][1]:.3f} ms per call (CUDA events, 2 x 10 calls "
-          f"each; {card})")
+        lambda: shuffle.depth_to_space_reference(d2s_main, 3),
+        lambda: shuffle.depth_to_space_cuda(d2s_main, 3),
+        d2s_library(d2s_main, 3))
+    bounds = {"d2s": bound(0.0, 2 * nbytes(d2s_main))}
+    print(f"depth-to-space, (24, 240, 240, 27) u8: kernel "
+          f"{times['d2s'][0]:.3f} ms, plain {times['d2s'][1]:.3f} ms, "
+          f"strided copy {times['d2s'][2]:.3f} ms, bound "
+          f"{bounds['d2s'][0]:.3f} ms (bytes; "
+          f"{bounds['d2s'][0] / times['d2s'][0]:.1%} reached) per call "
+          f"(CUDA events, 2 x 10 calls each; {card})")
+    for form in ("xla u8", "fused", "packed"):
+        name, x, f, tile, off, kw = epi_cases[form]
+        times[form] = time_in_turns(
+            lambda: shuffle.epilogue_reference(x, f, tile, off, **kw),
+            lambda: shuffle.epilogue_cuda(x, f, tile, off, **kw))
+        e = kw.get("edge")
+        out_b = x.shape[0] * (f * tile) ** 2 * 3 * (
+            1 if kw.get("to_u8") else 4)
+        moved = (x.shape[0] * tile * tile * f * f * 3 * 4 + out_b
+                 + (0 if e is None else
+                    x.shape[0] * (tile + 2) ** 2 * 3 * e.element_size()))
+        bounds[form] = bound(0.0, moved)
+        print(f"epilogue, {name}: kernel {times[form][0]:.3f} ms, plain "
+              f"{times[form][1]:.3f} ms, bound {bounds[form][0]:.3f} ms "
+              f"(bytes: {moved / 1e6:.1f} MB; "
+              f"{bounds[form][0] / times[form][0]:.1%} reached) per call "
+              f"(CUDA events, 2 x 10 calls each; {card})")
     # The conv stage at every shape: kernel, plain version (cuDNN, f32
     # with TF32 off for f32 out), cuDNN's bf16 conv (bf16 out whatever the
     # stage writes: the nearest single call) and the bound.
@@ -768,7 +818,7 @@ def main() -> int:
 
     def unfused_flat(z8, e8, m8):
         n, e = 32, 27
-        edge, mask = e8.float() * (1.0 / 255.0), m8.float()
+        mask = m8.float()
         t8 = z8.to(bf) * 2.0 ** -8
         c0 = cs_(torch.cat([t8, t8, torch.zeros_like(t8[..., :2])], dim=-1),
                  fp["conv0_u8"])
@@ -786,9 +836,8 @@ def main() -> int:
                          + fp["l3_bias"], fp["l3_belu"])
         expand = (b[..., 2 * n:2 * n + e] + c[..., n:n + e] + cv(l3, "conv10")
                   + fp["expand_bias"])
-        base_ph = bilinear_phases_cropped(edge, 3, h, h, 241)
-        return shuffle.epilogue_cuda(expand.contiguous(), 3, 241, h,
-                                     addend=base_ph, to_u8=True)
+        return shuffle.epilogue_cuda(expand.contiguous(), 3, 241, h, edge=e8,
+                                     to_u8=True)
 
     chunks = {
         "packed": (lambda: unfused_packed(pk_chunk[1], pk_chunk[2]),
@@ -814,6 +863,47 @@ def main() -> int:
               f"{f_ms - stages:.3f} ms (CUDA events, 2 x 10 calls each; "
               f"{card})")
 
+    # One 24-tile chunk of the xla exact tier, the flat fast tier and the
+    # fused exact engine as they run now (the epilogue kernel computes the
+    # base from the edge tiles), and as they ran with the plain casts and
+    # bilinear base, emulated: the same trunk, the plain casts and base,
+    # then the epilogue kernel given the base in place of expand (the
+    # earlier kernel read expand as well: one f32 tile-sized read more).
+    fx = tiling.prepare_stages({k: v.to(dev) for k, v in tiling
+                                .flat_trunk_params(anime, fast=False).items()})
+
+    def plain_base_flat(z8, e8, m8, fast, tile):
+        zero, mask = z8.float() * (1.0 / 255.0), m8.float()
+        expand = (tiling._flat_fast_trunk(fp, zero, z8, mask) if fast
+                  else tiling._flat_exact_trunk(fx, zero, mask))
+        expand.contiguous()
+        base = bilinear_phases_cropped(e8.float() * (1.0 / 255.0), 3, h, h,
+                                       tile)
+        return shuffle.epilogue_cuda(base, 3, tile, 0, to_u8=True)
+
+    def plain_base_fused():
+        trunk.fused_trunk(packed3, main_x, main_m, 3)
+        base = bilinear_phases_cropped(main_e, 3, h, h, 242)
+        return shuffle.epilogue_cuda(base, 3, 242, 0)
+
+    base_chunks = {
+        "xla exact": (lambda: plain_base_flat(*xl_chunk, False, 242),
+                      lambda: tiling._tile_kernel(fx, *xl_chunk, 3, 242,
+                                                  False, True)),
+        "flat fast": (lambda: plain_base_flat(*fl_chunk, True, 241),
+                      lambda: tiling._tile_kernel(fp, *fl_chunk, 3, 241,
+                                                  True, True)),
+        "fused exact": (plain_base_fused,
+                        lambda: tiling._tile_kernel_fused(
+                            packed3, main_x, main_e, main_m, 3, 242,
+                            torch.float32))}
+    for tier, (before, now) in base_chunks.items():
+        n_ms, b_ms, _ = time_in_turns(before, now)
+        print(f"{tier} chunk, 24 tiles: base in the epilogue kernel "
+              f"{n_ms:.3f} ms, plain casts and base (emulated) {b_ms:.3f} "
+              f"ms, {b_ms - n_ms:.3f} ms saved (CUDA events, 2 x 10 calls "
+              f"each; {card})")
+
     for tier in ("xla exact", "xla fast", "xla fast flat", "fused exact",
                  "fused fast"):
         print(f"CLI {tier}: {walls[tier]:.3f} s wall = "
@@ -832,8 +922,6 @@ def main() -> int:
     trunk_tpu = "rusty_sr_tpu/ops/pallas/trunk.py:134"
     shuffle_src = "rusty_sr_tpu_torch/csrc/shuffle.cu"
     shuffle_tpu = "rusty_sr_tpu/ops/pallas/shuffle.py:20"
-    d2s_bytes = 3 * nbytes(main_expand)
-    epi_bytes = 2 * 24 * 242 * 242 * 27 * 4 + 24 * 726 * 726 * 3
     rows = [
         row("trunk f32", trunk_src, trunk_tpu, launches["f32"],
             max_err[torch.float32], times[torch.float32],
@@ -841,10 +929,13 @@ def main() -> int:
         row("trunk bf16", trunk_src, trunk_tpu, launches["bf16"],
             max_err[torch.bfloat16], times[torch.bfloat16],
             trunk_bound[torch.bfloat16]),
-        row("depth_to_space", shuffle_src, shuffle_tpu, launches["d2s"],
-            d2s_err, times["d2s"], bound(0.0, d2s_bytes)),
-        row("epilogue u8", shuffle_src, shuffle_tpu, launches["epi"],
-            epi_err, times["epi"], bound(0.0, epi_bytes))]
+        row("depth_to_space u8", shuffle_src, shuffle_tpu, launches["d2s"],
+            d2s_err, times["d2s"], bounds["d2s"], times["d2s"][2])]
+    for form, label in (("xla u8", "epilogue xla u8"),
+                        ("fused", "epilogue fused f32"),
+                        ("packed", "epilogue packed u8")):
+        rows.append(row(label, shuffle_src, shuffle_tpu, epi_launches[form],
+                        epi_err, times[form], bounds[form]))
     for name, (k_ms, p_ms, l_ms, b_ms, b_by) in stage_rows.items():
         k = stage_shape[name][0]
         rows.append(row(

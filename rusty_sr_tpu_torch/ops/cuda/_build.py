@@ -138,14 +138,11 @@ def load() -> ctypes.CDLL:
             lib.srt_trunk_f32.restype = i32
             lib.srt_trunk_bf16.argtypes = [ptr] * 13 + [i32] * 5 + [ptr]
             lib.srt_trunk_bf16.restype = i32
-            lib.srt_depth_to_space_f32.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-            lib.srt_depth_to_space_f32.restype = i32
-            lib.srt_depth_to_space_u8.argtypes = [ptr] * 2 + [i32] * 5 + [ptr]
-            lib.srt_depth_to_space_u8.restype = i32
-            lib.srt_epilogue.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
+            lib.srt_depth_to_space.argtypes = [ptr] * 2 + [i32] * 6 + [ptr]
+            lib.srt_depth_to_space.restype = i32
+            lib.srt_epilogue.argtypes = ([ptr, ptr, i32, ptr] + [i32] * 12
+                                         + [ptr])
             lib.srt_epilogue.restype = i32
-            lib.srt_epilogue_packed.argtypes = [ptr] * 2 + [i32] * 7 + [ptr]
-            lib.srt_epilogue_packed.restype = i32
             i64 = ctypes.c_longlong
             lib.srt_conv_stage.argtypes = (
                 [ptr, i64, ptr, ptr, i64] + [i32] * 12

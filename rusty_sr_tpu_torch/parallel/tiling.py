@@ -68,13 +68,12 @@ def _tile_kernel_fused(packed, zero_tiles, edge_tiles, mask_tiles,
                        factor: int, tile: int,
                        compute_dtype: torch.dtype) -> torch.Tensor:
     """(B, T+2h, T+2h, ·) tiles -> (B, f*T, f*T, 3) SR of the tile centres:
-    the trunk in one kernel, then the LR-space bilinear base, added to it
-    in f32 inside the depth-to-space kernel."""
-    h = HALO
+    the trunk in one kernel, then the epilogue kernel, which computes the
+    LR-space bilinear base from the edge tiles and adds it in f32 before
+    depth-to-space."""
     expand = fused_trunk(packed, zero_tiles, mask_tiles, factor,
                          compute_dtype)
-    base_ph = bilinear_phases_cropped(edge_tiles, factor, h, h, tile)
-    return depth_to_space_cuda(expand, factor, addend=base_ph)
+    return epilogue_cuda(expand, factor, tile, 0, edge=edge_tiles)
 
 
 # --- The xla engine's weights: 2x2 space-to-depth packing (numpy) ---
@@ -248,27 +247,23 @@ def _tile_kernel(params, zero_tiles, edge_tiles, mask_tiles, factor: int,
     split of image and weights), and convA..conv10 round their outputs to
     bf16, which the BeLUs and the final sum read back in f32.  The
     epilogue kernel crops the halo of ``expand``, adds the LR-space
-    bilinear base, and with ``u8_io`` (uint8 tiles in) quantises, so the
-    HR tiles come out uint8."""
+    bilinear base, which it computes from the edge tiles (uint8 or f32),
+    and with ``u8_io`` (uint8 tiles in) quantises, so the HR tiles come
+    out uint8."""
     h = HALO
     p = params
     zero_u8 = zero_tiles if u8_io else None
-    if u8_io:
+    if u8_io and not fast:   # the exact tier's f32 convs and glue
         zero_tiles = zero_tiles.float() * (1.0 / 255.0)
-        edge_tiles = edge_tiles.float() * (1.0 / 255.0)
         mask_tiles = mask_tiles.float()
-    x = zero_tiles
-    mask = mask_tiles
-
     if fast:
-        expand = _flat_fast_trunk(p, x, zero_u8, mask)
+        expand = _flat_fast_trunk(p, zero_tiles, zero_u8, mask_tiles)
     else:
-        expand = _flat_exact_trunk(p, x, mask)
-    base_ph = bilinear_phases_cropped(edge_tiles, factor, h, h, tile)
+        expand = _flat_exact_trunk(p, zero_tiles, mask_tiles)
     # cuDNN may hand back its convs' outputs in either memory format, and
     # the sum follows it; the epilogue kernel reads NHWC densely.
     return epilogue_cuda(expand.contiguous(), factor, tile, h,
-                         addend=base_ph, to_u8=u8_io)
+                         edge=edge_tiles, edge_offset=h, to_u8=u8_io)
 
 
 def _flat_exact_trunk(p, x, mask):

@@ -17,7 +17,9 @@ conv-stage and epilogue kernels' device code run on the host.
   the kernel without it followed by the plain glue.
 - The fused epilogue's plain version, bit for bit the glue the tile
   kernels ran before it; the padded conv0 weights against the unpadded.
-- The epilogue of `csrc/shuffle.cu` byte-identical to its plain version.
+- The epilogue of `csrc/shuffle.cu` (the base from the edge tiles, crop,
+  quantisation, packed unpack, depth-to-space) byte-identical to its
+  plain version, its device code run on the host.
 """
 
 import ctypes
@@ -216,13 +218,16 @@ def test_conv_stage_cpu_tensors_take_the_plain_version():
 
 
 def test_epilogue_cpu_tensors_take_the_plain_version():
+    from rusty_sr_tpu_torch.ops.pixel_shuffle import depth_to_space
+    from rusty_sr_tpu_torch.ops.resize import bilinear_phases_cropped
     r = np.random.default_rng(4)
     x = torch.from_numpy(r.random((2, 12, 12, 27), dtype=np.float32))
-    add = torch.from_numpy(r.random((2, 6, 6, 27), dtype=np.float32) - 0.5)
+    edge = torch.from_numpy(r.integers(0, 256, (2, 12, 12, 3),
+                                       dtype=np.uint8))
     before = shuffle.EPILOGUE_LAUNCHES
-    got = shuffle.epilogue_cuda(x, 3, 6, 3, add, to_u8=True)
-    want = shuffle.quantise_u8(add + x[:, 3:9, 3:9])
-    from rusty_sr_tpu_torch.ops.pixel_shuffle import depth_to_space
+    got = shuffle.epilogue_cuda(x, 3, 6, 3, edge, edge_offset=3, to_u8=True)
+    base = bilinear_phases_cropped(edge.float() * (1.0 / 255.0), 3, 3, 3, 6)
+    want = shuffle.quantise_u8(base + x[:, 3:9, 3:9])
     assert torch.equal(got, depth_to_space(want, 3))
     packed = shuffle.epilogue_cuda(tiling._pack_s2d(x), 3, 6, 3, to_u8=True,
                                    packed=True)
@@ -230,7 +235,8 @@ def test_epilogue_cpu_tensors_take_the_plain_version():
         shuffle.quantise_u8(x[:, 3:9, 3:9]), 3))
     assert shuffle.EPILOGUE_LAUNCHES == before
     with pytest.raises(ValueError, match="cpu or cuda"):
-        shuffle.epilogue_cuda(x.to("meta"), 3, 6, 3, add.to("meta"))
+        shuffle.epilogue_cuda(x.to("meta"), 3, 6, 3, edge.to("meta"),
+                              edge_offset=3)
 
 
 # The conv-stage kernel's device code on the host: one OS thread per CUDA
@@ -539,63 +545,181 @@ def test_conv_stage_device_code_on_the_host(host_conv, k, cin, cout, h, w,
     assert_stage_close(got, want.float().numpy(), out_dtype)
 
 
-_EPILOGUE_SHIM = _HOST_DEFS + r"""
+# The epilogue kernel's device code on the host: one OS thread per CUDA
+# thread (fewer than on the card; its loops stride by blockDim), the blocks
+# in turn with shared memory poisoned with NaN bits before each,
+# __syncthreads a barrier of the block's threads and cp.async a memcpy.
+# The shared-memory target is an argument, so that a small one makes the
+# blocks take one row and segments of columns.
+_SHUFFLE_SHIM = _HOPPER_STANDINS + r"""
+static void cp_async16(void* d, const void* s) { std::memcpy(d, s, 16); }
+static void cp_async_commit() {}
+static void cp_async_wait_all() {}
 #include "shuffle.cu"
-extern "C" void host_epilogue(const float* x, const float* a, void* out,
-                              int n, int xh, int xw, int off, int tile, int c,
-                              int f, int packed, int to_u8) {
-  const int rows = n * f * tile;
-  auto u8 = static_cast<unsigned char*>(out);
+namespace { alignas(16) unsigned char ep_smem[1 << 18]; }
+static unsigned char* smem_base() { return ep_smem; }
+template <class TI, class TO, int EDGE, bool PACKED>
+static int run_epilogue(EpArgs a, long long target, int threads) {
+  const long long smem = ep_plan<TI, TO, EDGE, PACKED>(a, target);
+  if (smem < 0 || smem > (long long)sizeof(ep_smem)) return 1;
+  Barrier bar(threads);
+  block_bar = &bar;
+  blockDim = {(unsigned)threads, 1, 1};
+  const long long blocks = (long long)a.n * a.strips * a.segs;
+  for (long long b = 0; b < blocks; ++b) {
+    std::memset(ep_smem, 0xff, sizeof(ep_smem));
+    blockIdx = {(unsigned)b, 0, 0};
+    std::vector<std::thread> th;
+    for (int i = 0; i < threads; ++i)
+      th.emplace_back([=] {
+        threadIdx = {(unsigned)i, 0, 0};
+        if (a.f == 3)   // the launcher's choice of kernel
+          epilogue_kernel<TI, TO, EDGE, PACKED, 3>(a);
+        else
+          epilogue_kernel<TI, TO, EDGE, PACKED, 0>(a);
+      });
+    for (auto& t : th) t.join();
+  }
+  return 0;
+}
+// The kernel form the wrappers launch for these arguments: the plain
+// rearrangement of u8 (x_u8), or srt_epilogue's forms.
+extern "C" int host_epilogue(const void* x, int x_u8, const void* edge,
+                             int edge_kind, void* out, int to_u8, int packed,
+                             int n, int th, int tw, int xh, int xw, int off,
+                             int eh, int ew, int eoff, int c, int f,
+                             long long target, int threads) {
+  EpArgs a{};
+  a.x = x; a.edge = edge; a.out = out;
+  a.n = n; a.th = th; a.tw = tw; a.xh = xh; a.xw = xw; a.off = off;
+  a.eh = eh; a.ew = ew; a.eoff = eoff; a.c = c; a.f = f;
+  if (x_u8)
+    return run_epilogue<unsigned char, unsigned char, 0, false>(a, target,
+                                                                threads);
   if (packed)
-    d2s_kernel<float, unsigned char, false, true>(x, nullptr, u8, rows, tile,
-                                                  tile, xh, xw, off, c, f);
-  else if (to_u8)
-    d2s_kernel<float, unsigned char, true, false>(x, a, u8, rows, tile, tile,
-                                                  xh, xw, off, c, f);
-  else
-    d2s_kernel<float, float, true, false>(x, a, static_cast<float*>(out),
-                                          rows, tile, tile, xh, xw, off, c, f);
+    return run_epilogue<float, unsigned char, 0, true>(a, target, threads);
+  switch (edge_kind * 2 + (to_u8 ? 1 : 0)) {
+    case 0: return run_epilogue<float, float, 0, false>(a, target, threads);
+    case 1: return run_epilogue<float, unsigned char, 0, false>(a, target, threads);
+    case 2: return run_epilogue<float, float, 1, false>(a, target, threads);
+    case 3: return run_epilogue<float, unsigned char, 1, false>(a, target, threads);
+    case 4: return run_epilogue<float, float, 2, false>(a, target, threads);
+    case 5: return run_epilogue<float, unsigned char, 2, false>(a, target, threads);
+  }
+  return 1;
 }
 """
 
 
-@pytest.fixture(scope="module")
-def host_epilogue(tmp_path_factory):
-    lib = _compile_shim(tmp_path_factory, "host_epilogue", _EPILOGUE_SHIM)
-    lib.host_epilogue.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+def compile_host_epilogue(tmp_path_factory):
+    lib = _compile_shim(tmp_path_factory, "host_epilogue", _SHUFFLE_SHIM,
+                        ["-pthread"])
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.host_epilogue.argtypes = ([ptr, i32, ptr, i32, ptr] + [i32] * 13
+                                  + [ctypes.c_longlong, i32])
+    lib.host_epilogue.restype = i32
     return lib
 
 
-@pytest.mark.parametrize("mode", ["u8", "f32", "packed"])
-@pytest.mark.parametrize("factor,tile,off", [(3, 6, 7), (2, 5, 3), (4, 4, 2)])
-def test_epilogue_device_code_on_the_host(host_epilogue, mode, factor, tile,
-                                          off):
-    """Byte-identical to `epilogue_reference`: the crop read in place, one
-    f32 add, the quantisation without contraction, the packed unpack."""
-    r = np.random.default_rng(factor * 10 + tile)
-    n, side, e = 2, tile + 2 * off, 3 * factor * factor
+@pytest.fixture(scope="module")
+def host_epilogue(tmp_path_factory):
+    return compile_host_epilogue(tmp_path_factory)
+
+
+def _at_offset(a: np.ndarray, shift: int) -> np.ndarray:
+    """A copy of ``a`` that starts ``shift`` elements past a 16-byte
+    boundary."""
+    buf = np.empty(a.size + 32 // a.itemsize, a.dtype)
+    a0 = (-buf.ctypes.data % 16) // a.itemsize + shift
+    view = buf[a0:a0 + a.size].reshape(a.shape)
+    view[...] = a
+    return view
+
+
+def host_epilogue_run(lib, x, factor, th, tw, off, edge=None, eoff=0,
+                      to_u8=False, packed=False, shift=0, target=72 * 1024,
+                      threads=64):
+    """The kernel's device code on numpy ``x`` (and ``edge``), called as
+    the wrappers call the card, every input and the output ``shift``
+    elements past 16-byte alignment; the output starts as poison (NaN bits
+    or 0xab bytes)."""
+    n = x.shape[0]
+    xh, xw = (2 * x.shape[1], 2 * x.shape[2]) if packed else x.shape[1:3]
+    c = x.shape[3] // (4 if packed else 1) // (factor * factor)
+    odt = np.uint8 if to_u8 or x.dtype == np.uint8 else np.float32
+    out = _at_offset(np.full((n, factor * th, factor * tw, c),
+                             0xab if odt == np.uint8 else np.nan, odt), shift)
+    xs = _at_offset(x, shift)
+    es = None if edge is None else _at_offset(edge, shift)
+    kind = 0 if edge is None else 1 if edge.dtype == np.uint8 else 2
+    eh, ew = (0, 0) if edge is None else edge.shape[1:3]
+    assert lib.host_epilogue(
+        xs.ctypes.data, int(x.dtype == np.uint8),
+        None if es is None else es.ctypes.data, kind, out.ctypes.data,
+        int(to_u8), int(packed), n, th, tw, xh, xw, off, eh, ew, eoff, c,
+        factor, target, threads) == 0
+    return out
+
+
+EPI_MODES = ["u8", "f32", "packed", "fused", "u8-f32edge", "crop-u8"]
+# (factor, tile, off, shift, shared-memory target): factors 2, 3 and 4;
+# ragged tiles (odd, not a multiple of the block's rows); crops at 756
+# bytes into a row (7 px x 108 B, off 16-byte alignment) and inputs that
+# start off alignment; a target small enough that a block takes one row
+# and a segment of its columns.
+EPI_CASES = [(3, 6, 7, 0, 72 * 1024), (2, 5, 3, 0, 72 * 1024),
+             (4, 4, 2, 0, 72 * 1024), (2, 9, 7, 1, 72 * 1024),
+             (3, 11, 5, 3, 2048)]
+EPI_IDS = ["3-6-7", "2-5-3", "4-4-2", "2-9-7-shift1", "3-11-5-shift3-smem2K"]
+
+
+def epilogue_case(mode, factor, tile, off, seed):
+    """(x, edge, kwargs of `epilogue_reference`) for one form: x near
+    [0, 1] with exact quantisation midpoints (k + 0.5)/255, and tile 0's
+    edge tiles all zero (a base of 0, so the midpoints reach the
+    quantisation as they are)."""
+    r = np.random.default_rng(seed)
+    n, e = 2, 3 * factor * factor
+    side = tile + 2 * off
     if mode == "packed" and side % 2:
         side += 1
-    # values around [0, 1] and exact quantisation midpoints (k + 0.5)/255
-    x = r.normal(0.5, 0.4, (n, side, side, e)).astype(np.float32)
+    xs = tile if mode == "fused" else side
+    x = r.normal(0.5, 0.4, (n, xs, xs, e)).astype(np.float32)
     near = x.reshape(-1)[::7]
     near[:] = (r.integers(0, 255, near.size) + 0.5) / np.float32(255)
-    add = (r.normal(0, 0.1, (n, tile, tile, e)).astype(np.float32)
-           if mode != "packed" else None)
-    xt = torch.from_numpy(x)
+    edge = None
+    if mode in ("u8",):
+        edge = r.integers(0, 256, (n, side, side, 3), dtype=np.uint8)
+    elif mode in ("f32", "fused", "u8-f32edge"):
+        edge = r.random((n, side, side, 3), dtype=np.float32)
+    if edge is not None:
+        edge[0] = 0
+    kw = dict(to_u8=mode not in ("f32", "fused"), packed=mode == "packed",
+              edge_offset=off)
+    offset = 0 if mode == "fused" else off
     if mode == "packed":
-        xt = tiling._pack_s2d(xt).contiguous()
+        x = tiling._pack_s2d(torch.from_numpy(x)).contiguous().numpy()
+    return x, edge, offset, kw
+
+
+@pytest.mark.parametrize("mode", EPI_MODES)
+@pytest.mark.parametrize("factor,tile,off,shift,target", EPI_CASES,
+                         ids=EPI_IDS)
+def test_epilogue_device_code_on_the_host(host_epilogue, mode, factor, tile,
+                                          off, shift, target):
+    """Byte-identical to `epilogue_reference`: the crop read in place, the
+    base from u8 or f32 edge tiles (the same lerps in the same order), one
+    f32 add, the quantisation without contraction, the packed unpack."""
+    x, edge, offset, kw = epilogue_case(mode, factor, tile, off,
+                                        factor * 10 + tile)
     want = shuffle.epilogue_reference(
-        xt, factor, tile, off, None if add is None else torch.from_numpy(add),
-        to_u8=mode != "f32", packed=mode == "packed").numpy()
-    out = np.zeros(want.shape, want.dtype)
-    xr = np.ascontiguousarray(xt.numpy())
-    host_epilogue.host_epilogue(xr.ctypes.data,
-                                None if add is None else add.ctypes.data,
-                                out.ctypes.data, n, side, side, off, tile,
-                                3, factor, int(mode == "packed"),
-                                int(mode != "f32"))
-    assert out.tobytes() == want.tobytes()
+        torch.from_numpy(x), factor, tile, offset,
+        None if edge is None else torch.from_numpy(edge), **kw).numpy()
+    got = host_epilogue_run(host_epilogue, x, factor, tile, tile, offset,
+                            edge, off, kw["to_u8"], kw["packed"], shift,
+                            target)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
 
 
 # The fused epilogue: its plain version against the glue the tile kernels

@@ -121,30 +121,30 @@ def test_cuda_bf16_kernel_matches_plain_version(cuda_device, factor, s, seed):
         (float(d.max()), float(d.mean()))
 
 
+def same_bytes(got, want) -> bool:
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.contiguous().view(torch.uint8),
+                            want.contiguous().view(torch.uint8)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("factor,shape,dtype", [
     (3, (4, 21, 19, 27), torch.float32), (2, (3, 11, 13, 12), torch.float32),
-    (3, (2, 17, 9, 27), torch.uint8), (2, (70000, 1, 1, 12), torch.float32)],
-    ids=["f3-f32", "f2-f32", "f3-u8", "f2-many-rows"])
+    (3, (2, 17, 9, 27), torch.uint8), (2, (70000, 1, 1, 12), torch.float32),
+    (4, (3, 5, 700, 48), torch.uint8)],
+    ids=["f3-f32", "f2-f32", "f3-u8", "f2-many-rows", "f4-u8-wide"])
 def test_cuda_shuffle_is_byte_identical(cuda_device, factor, shape, dtype):
     g = torch.Generator(device="cpu").manual_seed(factor)
     if dtype == torch.uint8:
         x = torch.randint(0, 256, shape, generator=g, dtype=dtype)
-        add = None
     else:
         x = torch.randn(shape, generator=g)
-        add = torch.randn(shape, generator=g).to(cuda_device)
     x = x.to(cuda_device)
     before = shuffle.LAUNCHES
-    got = shuffle.depth_to_space_cuda(x, factor, addend=add)
+    got = shuffle.depth_to_space_cuda(x, factor)
     torch.cuda.synchronize()
     assert shuffle.LAUNCHES == before + 1
-    want = shuffle.depth_to_space_reference(x, factor, add)
-    assert got.dtype == want.dtype and got.shape == want.shape
-    assert torch.equal(got.view(torch.uint8) if dtype == torch.uint8
-                       else got.view(torch.int32),
-                       want.view(torch.uint8) if dtype == torch.uint8
-                       else want.view(torch.int32))
+    assert same_bytes(got, shuffle.depth_to_space_reference(x, factor))
 
 
 @pytest.mark.cuda
@@ -152,12 +152,12 @@ def test_cuda_tiled_path_matches_cpu(cuda_device):
     img = np.random.default_rng(6).random((37, 50, 3), dtype=np.float32)
     anime = load_builtin("anime")
     before = trunk.LAUNCHES[torch.float32]
-    before_d2s = shuffle.LAUNCHES
+    before_epi = shuffle.EPILOGUE_LAUNCHES
     got = upscale(img, anime, 3, engine="fused", tile=21, chunk=4,
                   device=cuda_device)
     # 2x3 tiles in two chunks
     assert trunk.LAUNCHES[torch.float32] == before + 2
-    assert shuffle.LAUNCHES == before_d2s + 2
+    assert shuffle.EPILOGUE_LAUNCHES == before_epi + 2
     want = upscale(img, anime, 3, engine="fused", tile=21, chunk=4,
                    device="cpu")
     np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
@@ -237,12 +237,23 @@ def test_cuda_shuffle_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         shuffle.depth_to_space_cuda(x.transpose(1, 2), 3)
     with pytest.raises(ValueError):
-        shuffle.depth_to_space_cuda(x, 3, addend=x.cpu())
+        shuffle.depth_to_space_cuda(x[0], 3)
+    # the fused engine's form: edge tiles on another device, of another
+    # batch or channel count, of another type, without a margin
+    e = torch.zeros((2, 20, 19, 3), device=cuda_device)
     with pytest.raises(ValueError):
-        shuffle.depth_to_space_cuda(x, 3, addend=x[:1])
+        shuffle.epilogue_cuda(x[:, :4, :4], 3, 4, 0, edge=e.cpu())
+    with pytest.raises(ValueError):
+        shuffle.epilogue_cuda(x[:, :4, :4], 3, 4, 0, edge=e[:1])
+    with pytest.raises(ValueError):
+        shuffle.epilogue_cuda(x[:, :4, :4].contiguous(), 3, 4, 0,
+                              edge=e[..., :2])
     with pytest.raises(TypeError):
-        shuffle.depth_to_space_cuda(x.to(torch.uint8), 3,
-                                    addend=x)
+        shuffle.epilogue_cuda(x[:, :4, :4].contiguous(), 3, 4, 0,
+                              edge=e.double())
+    with pytest.raises(ValueError, match="margin"):
+        shuffle.epilogue_cuda(x[:, :4, :4].contiguous(), 3, 4, 0, edge=e,
+                              edge_offset=15)
 
 
 def bf16_excess_ulps(got, want, f32_bound):
@@ -295,31 +306,41 @@ def test_cuda_conv_stage_matches_plain_version(cuda_device, case,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["u8", "f32", "packed"])
+@pytest.mark.parametrize("mode", ["u8", "f32", "packed", "fused",
+                                  "u8-f32edge", "crop-u8"])
 @pytest.mark.parametrize("factor,tile,off", [(3, 242, 7), (2, 13, 7),
-                                             (4, 5, 2)])
+                                             (4, 5, 2), (3, 1100, 7)])
 def test_cuda_epilogue_is_byte_identical(cuda_device, mode, factor, tile,
                                          off):
+    """Every form of the epilogue: the xla tiers' (u8 or f32 edge tiles,
+    u8 or f32 out), the packed tier's, the fused engine's (crop offset 0,
+    f32 edge tiles) and the crop alone; a 1100-pixel tile takes blocks of
+    one row and a segment of its columns."""
     g = torch.Generator(device="cpu").manual_seed(tile)
     side = tile + 2 * off + (1 if mode == "packed" and tile % 2 else 0)
     e = 3 * factor * factor
-    x = (torch.randn((3, side, side, e), generator=g) * 0.4 + 0.5)
+    n = 1 if tile > 1000 else 3
+    xs = tile if mode == "fused" else side
+    x = (torch.randn((n, xs, xs, e), generator=g) * 0.4 + 0.5)
     if mode == "packed":
-        x = x.reshape(3, side // 2, 2, side // 2, 2, e).permute(
-            0, 1, 3, 2, 4, 5).reshape(3, side // 2, side // 2, 4 * e)
-        add = None
-    else:
-        add = (torch.randn((3, tile, tile, e), generator=g) * 0.1) \
-            .to(cuda_device)
+        x = x.reshape(n, side // 2, 2, side // 2, 2, e).permute(
+            0, 1, 3, 2, 4, 5).reshape(n, side // 2, side // 2, 4 * e)
+    edge = None
+    if mode == "u8":
+        edge = torch.randint(0, 256, (n, side, side, 3), generator=g,
+                             dtype=torch.uint8).to(cuda_device)
+    elif mode in ("f32", "fused", "u8-f32edge"):
+        edge = torch.rand((n, side, side, 3), generator=g).to(cuda_device)
     x = x.contiguous().to(cuda_device)
-    kw = dict(addend=add, to_u8=mode != "f32", packed=mode == "packed")
+    kw = dict(edge=edge, edge_offset=off, to_u8=mode not in ("f32", "fused"),
+              packed=mode == "packed")
+    offset = 0 if mode == "fused" else off
     before = shuffle.EPILOGUE_LAUNCHES
-    got = shuffle.epilogue_cuda(x, factor, tile, off, **kw)
+    got = shuffle.epilogue_cuda(x, factor, tile, offset, **kw)
     torch.cuda.synchronize()
     assert shuffle.EPILOGUE_LAUNCHES == before + 1
-    want = shuffle.epilogue_reference(x, factor, tile, off, **kw)
-    assert got.dtype == want.dtype and got.shape == want.shape
-    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert same_bytes(got, shuffle.epilogue_reference(x, factor, tile, offset,
+                                                      **kw))
 
 
 @pytest.mark.cuda
@@ -358,17 +379,18 @@ def test_cuda_conv_stage_and_epilogue_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         conv_stage.conv_stage(x, w.cpu())
     e = torch.zeros((2, 20, 20, 27), device=cuda_device)
-    add = torch.zeros((2, 6, 6, 27), device=cuda_device)
+    edge = torch.zeros((2, 20, 20, 3), device=cuda_device,
+                       dtype=torch.uint8)
     with pytest.raises(ValueError):
-        shuffle.epilogue_cuda(e, 3, 6, 7)            # no addend
+        shuffle.epilogue_cuda(e, 3, 6, 15, edge)     # window past the edge
     with pytest.raises(ValueError):
-        shuffle.epilogue_cuda(e, 3, 6, 15, add)      # window past the edge
-    with pytest.raises(ValueError):
-        shuffle.epilogue_cuda(e, 3, 6, 7, add[:1])
+        shuffle.epilogue_cuda(e, 3, 6, 7, edge[:1])
     with pytest.raises(TypeError):
-        shuffle.epilogue_cuda(e.double(), 3, 6, 7, add)
+        shuffle.epilogue_cuda(e.double(), 3, 6, 7, edge)
     with pytest.raises(ValueError):
-        shuffle.epilogue_cuda(e, 3, 6, 7, add, packed=True)
+        shuffle.epilogue_cuda(e, 3, 6, 7, edge, packed=True)
+    with pytest.raises(ValueError):
+        shuffle.epilogue_cuda(e, 3, 6, 7, edge, edge_offset=0)  # no margin
 
 
 FUSED = ["packed-W0", "packed-WA", "packed-WB", "packed-WC", "packed-WD",

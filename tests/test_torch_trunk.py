@@ -187,10 +187,10 @@ def test_cpu_tensors_take_the_plain_version(dtype):
 def test_shuffle_cpu_tensors_take_the_plain_version():
     r = np.random.default_rng(3)
     x = torch.from_numpy(r.random((2, 4, 5, 27), dtype=np.float32))
-    a = torch.from_numpy(r.random((2, 4, 5, 27), dtype=np.float32))
+    u8 = torch.from_numpy(r.integers(0, 256, (2, 4, 5, 27), dtype=np.uint8))
     before = shuffle.LAUNCHES
-    got = shuffle.depth_to_space_cuda(x, 3, addend=a)
-    assert torch.equal(got, depth_to_space(x + a, 3))
+    assert torch.equal(shuffle.depth_to_space_cuda(u8, 3),
+                       depth_to_space(u8, 3))
     assert torch.equal(shuffle.depth_to_space_cuda(x, 3),
                        depth_to_space(x, 3))
     assert shuffle.LAUNCHES == before
@@ -337,25 +337,6 @@ extern "C" int host_trunk(int bf16, const void* const* p, float* out,
 """
 
 
-_SHUFFLE_SHIM = _HOST_DEFS + r"""
-#include "shuffle.cu"
-extern "C" void host_d2s_f32(const float* x, const float* a, float* out,
-                             int n, int h, int w, int c, int f) {
-  if (a)
-    d2s_kernel<float, float, true, false>(x, a, out, n * f * h, h, w, h, w, 0,
-                                          c, f);
-  else
-    d2s_kernel<float, float, false, false>(x, nullptr, out, n * f * h, h, w,
-                                           h, w, 0, c, f);
-}
-extern "C" void host_d2s_u8(const unsigned char* x, unsigned char* out,
-                            int n, int h, int w, int c, int f) {
-  d2s_kernel<unsigned char, unsigned char, false, false>(
-      x, nullptr, out, n * f * h, h, w, h, w, 0, c, f);
-}
-"""
-
-
 def _compile_shim(tmp_path_factory, name, code, extra=()):
     """Compile ``code`` (a shim that includes a kernel source) with g++
     into a shared library; no FMA contraction, as nvcc's __fmul_rn and
@@ -495,36 +476,52 @@ def test_kernel_device_code_against_exact_sums(host_kernel, dtype):
 
 @pytest.fixture(scope="module")
 def host_shuffle(tmp_path_factory):
-    lib = _compile_shim(tmp_path_factory, "host_shuffle", _SHUFFLE_SHIM)
-    lib.host_d2s_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-    lib.host_d2s_u8.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-    return lib
+    from test_torch_conv_stage import compile_host_epilogue
+    return compile_host_epilogue(tmp_path_factory)
 
 
-@pytest.mark.parametrize("factor,shape,dtype", [
-    (3, (2, 5, 7, 27), "f32+addend"), (2, (3, 4, 9, 12), "f32+addend"),
-    (3, (2, 6, 5, 27), "u8"), (2, (1, 7, 3, 12), "u8")])
-def test_shuffle_device_code_on_the_host(host_shuffle, factor, shape, dtype):
-    """The shuffle kernel's own code, byte-identical to its plain version
-    (one f32 add per element on both sides, then a permutation)."""
+SHUFFLE_CASES = [
+    (3, (2, 5, 7, 27), "f32+edge", 0), (2, (3, 4, 9, 12), "f32+edge", 1),
+    (3, (2, 6, 5, 27), "u8", 0), (2, (1, 7, 3, 12), "u8", 0),
+    (4, (2, 3, 5, 48), "f32", 1), (3, (1, 5, 6, 27), "f32", 0),
+    (4, (1, 5, 4, 48), "u8", 5), (4, (2, 4, 3, 48), "f32+u8 edge", 2)]
+
+
+@pytest.mark.parametrize(
+    "factor,shape,dtype,shift", SHUFFLE_CASES,
+    ids=[f"{f}-shape{i}-{d}" + (f"-shift{s}" if s else "")
+         for i, (f, _, d, s) in enumerate(SHUFFLE_CASES)])
+def test_shuffle_device_code_on_the_host(host_shuffle, factor, shape, dtype,
+                                         shift):
+    """The shuffle kernel's own code, byte-identical to its plain version:
+    the plain rearrangement of u8 or f32 values, and the fused engine's
+    form, ``depth_to_space(x + base)`` with the base from the edge tiles
+    around the h x w window (f32 or u8), on windows that are not square
+    and inputs and outputs that start off 16-byte alignment."""
+    from test_torch_conv_stage import host_epilogue_run
+    from rusty_sr_tpu_torch.ops.resize import bilinear_phases
     r = np.random.default_rng(factor)
     n, h, w, cff = shape
     c = cff // (factor * factor)
+    edge = None
     if dtype == "u8":
         x = r.integers(0, 256, shape, dtype=np.uint8)
         want = depth_to_space(torch.from_numpy(x), factor).numpy()
-        out = np.zeros(want.shape, np.uint8)
-        host_shuffle.host_d2s_u8(x.ctypes.data, out.ctypes.data, n, h, w, c,
-                                 factor)
     else:
         x = r.normal(0, 1, shape).astype(np.float32)
-        a = r.normal(0, 1, shape).astype(np.float32)
-        want = shuffle.depth_to_space_reference(
-            torch.from_numpy(x), factor, torch.from_numpy(a)).numpy()
-        out = np.full(want.shape, np.nan, np.float32)
-        host_shuffle.host_d2s_f32(x.ctypes.data, a.ctypes.data,
-                                  out.ctypes.data, n, h, w, c, factor)
-    assert out.tobytes() == want.tobytes()
+        want = shuffle.depth_to_space_reference(torch.from_numpy(x), factor)
+        if dtype != "f32":
+            edge = (r.integers(0, 256, (n, h + 4, w + 4, c), dtype=np.uint8)
+                    if "u8" in dtype else
+                    r.random((n, h + 4, w + 4, c), dtype=np.float32))
+            e = shuffle.edge_to_f32(torch.from_numpy(edge))
+            base = bilinear_phases(e, factor)[:, 2:2 + h, 2:2 + w]
+            want = depth_to_space(torch.from_numpy(x) + base, factor)
+        want = want.numpy()
+    got = host_epilogue_run(host_shuffle, x, factor, h, w, 0, edge, 2,
+                            shift=shift)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("factor,width", [(3, 32), (4, 32), (2, 40)])
