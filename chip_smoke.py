@@ -6,7 +6,9 @@
 Phases, each fatal on failure:
 
 1. print the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions and the PNG codec in use;
+   CUDA versions and the PNG encoder and decoder in use (with the
+   compiler's error where the native codec did not build; the native tile
+   library must build);
 2. build the kernels from ``rusty_sr_tpu_torch/csrc`` with nvcc;
 3. hold each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it (anime weights, factor 3, a chunk of
@@ -40,6 +42,20 @@ Phases, each fatal on failure:
    byte-identical to the run through the plain versions, and within 1
    code of the CPU); then check that both engines' tiled paths agree
    with the whole-image network on a small crop;
+4b. serve a folder of synthetic PNGs (four 1024x768, four ragged sizes,
+   ``a.png`` beside ``a.PNG``, one truncated file), each path with the
+   counts set to 0 before it: folder mode in the exact tier (the
+   epilogue ran), ``--fast`` and ``--fast --tile 241`` (every conv stage
+   ran), each output within 1 (exact) or 4 codes of the single-image
+   CLI's for the same file; the exact folder through the plain versions
+   (1 code) and in one-image groups (byte-identical); ``watch --once
+   --metrics`` (the same files, one record); a ``-p bilinear`` folder
+   (depth-to-space ran; byte-identical to the single images);
+   `tiled_sr_batch` on the images three times over at 8 and 1 chunks in
+   flight (byte-identical); then the folder's HR MPix/s, the batch's
+   HR MPix/s and the device's busy share under torch.profiler, the peak
+   device memory, the PNG encoders' MPix/s and the single-image CLI's
+   wall time again;
 5. time each kernel, its plain version and, where one exists, the one
    PyTorch call for the same function (cuDNN's bf16 conv for the conv
    stage) with CUDA events, in turns, beside its bound (the larger of
@@ -58,7 +74,8 @@ Phases, each fatal on failure:
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel (the conv stage once per stage of each fast tier) with
-its launches (summed over the CLI paths above), error, times and bound.
+its launches (summed over the CLI and serving paths above), error,
+times and bound.
 Without a CUDA device, or outside the repository, it
 exits non-zero and prints no result.
 """
@@ -165,6 +182,315 @@ def bf16_excess_ulps(got, want, f32_bound):
     return excess / torch.exp2(torch.floor(torch.log2(m)) - 7)
 
 
+def busy_share(prof, wall_s: float):
+    """(kernel share, copy share) of ``wall_s``: the union of the CUDA
+    kernels' and of the copies' intervals in a torch.profiler run, or
+    None where the profiler saw no device event."""
+    from torch.autograd import DeviceType
+    spans = {"kernel": [], "copy": []}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = "copy" if e.name.startswith(("Memcpy", "Memset")) else "kernel"
+        spans[kind].append((e.time_range.start, e.time_range.end))
+    if not spans["kernel"]:
+        return None
+
+    def union_us(iv):
+        total, end = 0.0, None
+        for a, b in sorted(iv):
+            if end is None or a > end:
+                total += b - a
+                end = b
+            elif b > end:
+                total += b - end
+                end = b
+        return total
+    return tuple(union_us(spans[k]) * 1e-6 / wall_s for k in ("kernel",
+                                                             "copy"))
+
+
+def best_of(fn, reps: int = 3) -> float:
+    """Least host-clock seconds of ``reps`` calls."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def serving_phase(cli, tiling, imageio, native, anime, rng, card,
+                  zero_counts, counts, run_plain, stage_shape, walls):
+    """Folder mode, watch and `tiled_sr_batch` on a folder of synthetic
+    PNGs: four 1024x768, four ragged sizes, a name collision (a.png and
+    a.PNG) and a truncated file.  Returns the launches of the counted
+    runs: {"launches": {...}, "epi": {form: n}, "shapes": {key: n}}."""
+    import io
+    import torch
+    from rusty_sr_tpu_torch.train.data import list_images
+
+    bf = torch.bfloat16
+    got = {"launches": {"f32": 0, "bf16": 0, "d2s": 0, "epi": 0, "conv": 0},
+           "epi": {"xla u8": 0, "packed": 0}, "shapes": {}}
+
+    def add(n, form=None):
+        for k in got["launches"]:
+            got["launches"][k] += n[k]
+        if form:
+            got["epi"][form] += n["epi"]
+        for key, v in n["shapes"].items():
+            got["shapes"][key] = got["shapes"].get(key, 0) + v
+
+    def run(argv, what):
+        rc = cli.main(argv)
+        if rc != 0:
+            fail(f"{what} exited {rc}")
+
+    def u8(path):
+        return imageio.load_image_u8(path)
+
+    def worst(a, b):
+        return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    saved_group = cli._GROUP_LR_BYTES
+    saved_inflight = tiling._MAX_INFLIGHT
+    try:
+        src = os.path.join(tmp, "in")
+        os.makedirs(src)
+        shapes = {f"big{i}.png": (768, 1024) for i in range(4)}
+        shapes.update({"r517x300.png": (300, 517), "r131x97.png": (97, 131),
+                       "r243x241.png": (241, 243), "r16x16.png": (16, 16),
+                       "a.png": (48, 64), "a.PNG": (64, 48)})
+        for name, (hh, ww) in shapes.items():
+            imageio.save_image_u8(os.path.join(src, name),
+                                  synthetic_image(rng, hh, ww))
+        trunc = os.path.join(src, "truncated.png")
+        imageio.save_image_u8(trunc, synthetic_image(rng, 40, 40))
+        with open(trunc, "r+b") as f:
+            f.truncate(os.path.getsize(trunc) // 2)
+        files = list_images(src)
+        readable = [f for f in files if f != trunc]
+        names = dict(zip(files, cli._output_names(files)))
+        lr_px = sum(h_ * w_ for h_, w_ in shapes.values())
+        hr_mpix = lr_px * 9 / 1e6
+        print(f"serving folder: {len(files)} files ({len(readable)} "
+              f"readable, one truncated; a.png and a.PNG collide -> "
+              f"{names[os.path.join(src, 'a.PNG')]}, "
+              f"{names[os.path.join(src, 'a.png')]}), {lr_px / 1e6:.3f} LR "
+              f"MPix -> {hr_mpix:.3f} HR MPix")
+
+        def out(name):
+            return os.path.join(tmp, name)
+
+        def single(flags, tag):
+            """The single-image CLI's output for every readable file."""
+            ref = {}
+            for f in readable:
+                o = out(f"{tag}_{os.path.basename(f)}.png")
+                run(["-p", "anime", *flags, f, o] if "-p" not in flags
+                    else [*flags, f, o], f"single-image CLI {tag} {f}")
+                ref[f] = u8(o)
+            return ref
+
+        def folder_outputs(d):
+            listed = sorted(os.listdir(d))
+            want = sorted(names[f] for f in readable)
+            if listed != want:
+                fail(f"folder output {d}: {listed}, expected {want}")
+            return {f: u8(os.path.join(d, names[f])) for f in readable}
+
+        tiers = (("exact", [], ("epi",), 1, "xla u8", None),
+                 ("fast", ["--fast"], ("conv", "epi"), 4, "packed", "packed"),
+                 ("flat", ["--fast", "--tile", "241"], ("conv", "epi"), 4,
+                  "xla u8", "flat"))
+        folders = {}
+        for tier, flags, must, code_bound, form, stages in tiers:
+            d = out(f"folder_{tier}")
+            zero_counts()
+            t0 = time.time()
+            run(["-p", "anime", *flags, src, d], f"folder {tier}")
+            n = counts()
+            wall = time.time() - t0
+            t0 = time.time()
+            run(["-p", "anime", *flags, src, out(f"folder_{tier}_again")],
+                f"folder {tier}, again")
+            wall2 = time.time() - t0
+            print(f"folder {tier}: {len(readable)} images, {hr_mpix:.3f} HR "
+                  f"MPix in {wall:.3f} s wall = {hr_mpix / wall:.2f} HR "
+                  f"MPix/s; run again {wall2:.3f} s = "
+                  f"{hr_mpix / wall2:.2f} HR MPix/s (host clock; launches: "
+                  f"epilogue {n['epi']}, conv stage {n['conv']}; {card})")
+            walls[f"folder {tier}"] = (wall, wall2, hr_mpix)
+            for k in must:
+                if n[k] < 1:
+                    fail(f"folder {tier} launched no {k} kernel")
+            for stage, key in stage_shape.items():
+                if stage.split()[0] == stages and n["shapes"].get(key, 0) < 1:
+                    fail(f"folder {tier} launched no {stage} stage")
+            add(n, form)
+            folders[tier] = got_t = folder_outputs(d)
+            ref = single(flags, tier)
+            diffs = {f: worst(got_t[f], ref[f]) for f in readable}
+            same = all(got_t[f].tobytes() == ref[f].tobytes()
+                       for f in readable)
+            print(f"folder {tier} vs the single-image CLI: max "
+                  f"{max(diffs.values())} u8 codes over {len(readable)} "
+                  f"files (bound {code_bound}); "
+                  f"{'byte-identical' if same else 'NOT byte-identical'}")
+            if max(diffs.values()) > code_bound:
+                fail(f"folder {tier} differs from the single-image CLI: "
+                     f"{diffs}")
+
+        run_plain(["-p", "anime", src, out("folder_plain")],
+                  "folder exact")
+        plain = folder_outputs(out("folder_plain"))
+        w_plain = max(worst(folders["exact"][f], plain[f]) for f in readable)
+        print(f"folder exact, kernels vs plain versions: max {w_plain} u8 "
+              "codes (bound 1)")
+        if w_plain > 1:
+            fail(f"folder exact vs plain: {w_plain} codes")
+
+        cli._GROUP_LR_BYTES = 1
+        run(["-p", "anime", src, out("folder_split")], "folder, 1-image groups")
+        cli._GROUP_LR_BYTES = saved_group
+        split = folder_outputs(out("folder_split"))
+        same = all(split[f].tobytes() == folders["exact"][f].tobytes()
+                   for f in readable)
+        print(f"folder exact in one-image groups: "
+              f"{'byte-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail("folder exact in one-image groups differs")
+
+        metrics = out("watch.jsonl")
+        zero_counts()
+        run(["watch", "-p", "anime", "--once", "--metrics", metrics, src,
+             out("watch")], "watch --once")
+        n = counts()
+        if n["epi"] < 1:
+            fail("watch --once launched no epilogue")
+        add(n, "xla u8")
+        watched = folder_outputs(out("watch"))
+        with open(metrics) as f:
+            recs = [json.loads(line) for line in f]
+        same = all(watched[f].tobytes() == folders["exact"][f].tobytes()
+                   for f in readable)
+        print(f"watch --once: {'byte-identical to' if same else 'DIFFERENT from'}"
+              f" the exact folder run; {len(recs)} metrics record(s): "
+              f"{recs}")
+        if not same or len(recs) != 1 or recs[0]["images"] != len(readable):
+            fail("watch --once disagrees with the folder run or its metrics")
+
+        zero_counts()
+        run(["-p", "bilinear", src, out("bilinear")], "folder -p bilinear")
+        n = counts()
+        if n["d2s"] < 1:
+            fail("the bilinear folder launched no depth-to-space kernel")
+        add(n)
+        bil, ref = folder_outputs(out("bilinear")), single(["-p", "bilinear"],
+                                                           "bilinear")
+        same = all(bil[f].tobytes() == ref[f].tobytes() for f in readable)
+        print(f"folder -p bilinear: {'byte-identical to' if same else 'DIFFERENT from'}"
+              f" the single-image runs (launches: depth-to-space {n['d2s']})")
+        if not same:
+            fail("the bilinear folder differs from the single-image runs")
+
+        # tiled_sr_batch on the folder's images three times over: 276
+        # tiles, 12 chunks, so the ring of 9 pinned slots wraps at depth 8.
+        imgs = [imageio.load_image_u8(f) for f in readable] * 3
+        hr3 = 3 * hr_mpix
+        for cd, tier in ((None, "exact"), (bf, "fast")):
+            runs = {}
+            for depth in (8, 1):
+                tiling._MAX_INFLIGHT = depth
+                runs[depth] = tiling.tiled_sr_batch(anime, imgs, 3,
+                                                    compute_dtype=cd)
+            tiling._MAX_INFLIGHT = saved_inflight
+            same = all(a.tobytes() == b.tobytes()
+                       for a, b in zip(runs[1], runs[8]))
+            print(f"tiled_sr_batch {tier}, {len(imgs)} images: in-flight 8 "
+                  f"and 1 {'byte-identical' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"tiled_sr_batch {tier}: outputs depend on the "
+                     "in-flight depth")
+            del runs
+
+            def batch():
+                tiling.tiled_sr_batch(anime, imgs, 3, compute_dtype=cd)
+                torch.cuda.synchronize()
+            ts = sum(best_of(batch, 1) for _ in range(2)) / 2
+            print(f"tiled_sr_batch {tier}, {len(imgs)} images ({hr3:.2f} HR "
+                  f"MPix): {ts:.4f} s = {hr3 / ts:.1f} HR MPix/s (host "
+                  f"clock, mean of 2; {card})")
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                batch()
+                wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            share = busy_share(prof, wall)
+            # The profiler lengthens the wall by a varying amount; the
+            # kernels' own time does not vary, so it is also given over
+            # the untraced wall above.
+            busy = ("not measured (the profiler saw no device event)"
+                    if share is None else f"kernels {share[0]:.1%}, copies "
+                    f"{share[1]:.1%} of {wall:.4f} s (kernels "
+                    f"{share[0] * wall:.4f} s = {share[0] * wall / ts:.1%} "
+                    f"of the untraced {ts:.4f} s)")
+            print(f"tiled_sr_batch {tier} under torch.profiler: device busy "
+                  f"{busy}; peak device memory {peak / 2**30:.3f} GiB "
+                  f"above the {base / 2**30:.3f} GiB held before the call "
+                  f"(max_memory_allocated; {card})")
+            walls[f"busy {tier}"] = (share, wall, peak)
+
+        # The encoders on one HR image of the exact folder run.
+        big0 = os.path.join(src, "big0.png")
+        hr = folders["exact"][big0]
+        mp = hr.shape[0] * hr.shape[1] / 1e6
+        rates = {}
+        if native.png_available():
+            rates["native fh, 1 thread"] = best_of(
+                lambda: native.png_encode(hr, threads=1))
+            rates["native fh, auto threads"] = best_of(
+                lambda: native.png_encode(hr, threads=0))
+        else:
+            print("native PNG codec unavailable: "
+                  f"{native.build_error('png') or 'no compiler'}")
+        try:
+            from PIL import Image
+
+            def pil():
+                Image.fromarray(hr).convert("RGBA").save(
+                    io.BytesIO(), "PNG", compress_level=1)
+            rates["Pillow (zlib 1)"] = best_of(pil, 2)
+        except ImportError:
+            pass
+        rates["stdlib zlib 1"] = best_of(lambda: imageio.png_encode(hr), 2)
+        print(f"PNG encode of one {hr.shape[1]}x{hr.shape[0]} HR image: "
+              + "; ".join(f"{k} {s * 1e3:.1f} ms = {mp / s:.1f} MPix/s"
+                          for k, s in rates.items())
+              + f" (host clock, best of 3 or 2; {os.cpu_count()} cores; "
+              f"{card})")
+        walls["encode"] = (rates, mp)
+
+        t0 = time.time()
+        run(["-p", "anime", big0, out("single_again.png")],
+            "single-image CLI, again")
+        wall = time.time() - t0
+        print(f"single-image xla exact CLI, 1024x768: first run in the "
+              f"process {walls['xla exact']:.3f} s, run again {wall:.3f} s "
+              f"(host clock; {card})")
+    finally:
+        cli._GROUP_LR_BYTES = saved_group
+        tiling._MAX_INFLIGHT = saved_inflight
+        shutil.rmtree(tmp, ignore_errors=True)
+    return got
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -193,7 +519,14 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}, PNG codec {imageio.codec()}")
+          f"{torch.cuda.get_device_name(0)}; PNG encoder and decoder: "
+          f"{imageio.codec()}; {os.cpu_count()} host cores")
+    if native.build_error("png"):
+        print("the native PNG codec did not build, so the serving numbers "
+              "below are the fallback's:\n" + native.build_error("png"))
+    if not native.available():
+        fail("the native tile library did not build: "
+             + (native.build_error("tileio") or "no C++ compiler"))
 
     # 2. Build.
     t0 = time.time()
@@ -370,13 +703,13 @@ def main() -> int:
     ny, nx = -(-lr.shape[0] // 242), -(-lr.shape[1] // 242)
     pk_chunk = [None if t is None else torch.from_numpy(np.pad(
         t, ((0, 24 - t.shape[0]),) + ((0, 0),) * 3)).to(dev)
-        for t in tiling._gather_u8_range(lr, 242, tiling.HALO, nx, 0,
-                                         ny * nx, need_zero=False)]
+        for t in native.gather_tiles_range(lr, 242, tiling.HALO, nx, 0,
+                                           ny * nx, need_zero=False)]
     ny1, nx1 = -(-lr.shape[0] // 241), -(-lr.shape[1] // 241)
     fl_chunk = [torch.from_numpy(np.pad(
         t, ((0, 24 - t.shape[0]),) + ((0, 0),) * 3)).to(dev)
-        for t in tiling._gather_u8_range(lr, 241, tiling.HALO, nx1, 0,
-                                         min(24, ny1 * nx1))]
+        for t in native.gather_tiles_range(lr, 241, tiling.HALO, nx1, 0,
+                                           min(24, ny1 * nx1))]
     m4 = tiling._pack_s2d(pk_chunk[2]).to(bf)
     m1 = fl_chunk[2].to(bf)
     Epi, Fused = conv_stage.Epilogue, conv_stage.FusedStage
@@ -464,7 +797,7 @@ def main() -> int:
 
     xl_chunk = [torch.from_numpy(np.pad(
         t, ((0, 24 - t.shape[0]),) + ((0, 0),) * 3)).to(dev)
-        for t in tiling._gather_u8_range(lr, 242, h, nx, 0, ny * nx)]
+        for t in native.gather_tiles_range(lr, 242, h, nx, 0, ny * nx)]
     epi_x = near_unit((24, 256, 256, 27))
     epi_packed = near_unit((24, 128, 128, 108))
     e2_u8 = torch.randint(0, 256, (6, 75, 75, 3), generator=gen,
@@ -659,6 +992,17 @@ def main() -> int:
         if not err_whole <= TOL:
             fail(f"tiled {engine} path vs whole image: {err_whole} > {TOL}")
 
+    # 4b. Serving: folder mode, watch and tiled_sr_batch on a folder of
+    # synthetic PNGs, each path with the counts set to 0 just before it.
+    serve = serving_phase(cli, tiling, imageio, native, anime, rng, card,
+                          zero_counts, counts, run_plain, stage_shape, walls)
+    for k in launches:
+        launches[k] += serve["launches"][k]
+    for form, v in serve["epi"].items():
+        epi_launches[form] += v
+    for key, v in serve["shapes"].items():
+        shape_launches[key] = shape_launches.get(key, 0) + v
+
     # 5. Times at the main path's shapes, in turns.  The trunk's work on a
     # 24 x 256^2 chunk: stage extents 252, 248, 246, 244, 242 (the halo
     # shrinks by each conv's radius); K and N per stage.  Its bound: the
@@ -760,7 +1104,7 @@ def main() -> int:
             4 if odt == torch.float32 else 2)
         b_ms, b_by = bound(conv_flops(x, hw), nbytes(x, hw) + out_b)
         print(f"conv stage, {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} "
-              f"ms, cuDNN bf16 {l_ms:.3f} ms, bound {b_ms:.3f} ms "
+              f"ms, cuDNN bf16 {l_ms:.3f} ms, bound {b_ms * 1e3:.3f} µs "
               f"({b_by}; {b_ms / k_ms:.1%} reached) per call (CUDA events, "
               f"2 x 10 calls each; {card})")
 

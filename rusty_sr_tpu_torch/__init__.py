@@ -9,8 +9,10 @@ trunk as conv stages; its bf16 convs on the hand-written conv-stage
 kernel `csrc/conv_stage.cu` and its output through the epilogue in
 `csrc/shuffle.cu`) and fused (the trunk as the hand-written kernel
 `csrc/trunk.cu`, its output through the depth-to-space kernel) — in the
-exact (f32) and fast (bf16) tiers; and the bilinear and downsample
-modes.
+exact (f32) and fast (bf16) tiers; the bilinear and downsample modes;
+and serving — `upscale_batch` and the CLI's folder and watch modes, with
+tiles batched across images, a native host codec and pinned,
+stream-ordered copies.
 """
 
 __version__ = "0.1.0"
@@ -29,5 +31,6 @@ from rusty_sr_tpu_torch.params import (  # noqa: F401
 from rusty_sr_tpu_torch.api import (  # noqa: F401
     downscale,
     upscale,
+    upscale_batch,
     upscale_bilinear,
 )

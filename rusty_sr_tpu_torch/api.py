@@ -3,6 +3,7 @@
 >>> import rusty_sr_tpu_torch
 >>> hr = rusty_sr_tpu_torch.upscale(img_u8, weights="anime")  # uint8 out
 >>> hr = rusty_sr_tpu_torch.upscale(img_u8, weights="anime", fast=True)
+>>> hrs = rusty_sr_tpu_torch.upscale_batch([a_u8, b_u8], weights="anime")
 >>> lr = rusty_sr_tpu_torch.downscale(img)                  # gamma-correct
 """
 
@@ -62,6 +63,32 @@ def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
     return tiled_sr(tree, image, factor, tile=tile, chunk=chunk,
                     engine=engine, device=device,
                     compute_dtype=torch.bfloat16 if fast else None)
+
+
+def upscale_batch(images, weights: Union[str, dict] = "imagenet",
+                  factor: int = 3, *, fast: bool = False, tile: int = 242,
+                  chunk: Optional[int] = None, mesh=None,
+                  on_image_done=None, release_outputs: bool = False,
+                  device="cuda") -> list:
+    """Upscale a list of images on the xla engine, with tiles batched
+    across images (`parallel.tiling.tiled_sr_batch`, which the folder and
+    watch modes run on).
+
+    All images share one dtype: all uint8 (uint8 out) or all float in
+    [0, 1] (float32 out).  ``on_image_done(i, out)`` fires in ascending
+    ``i`` the moment image i is finished, while later tiles still
+    compute, so that encoding overlaps the card; with
+    ``release_outputs=True`` the returned list holds None for the images
+    delivered.  ``mesh`` is not ported yet and raises.  ``device`` as in
+    `upscale`.
+    """
+    from rusty_sr_tpu_torch.parallel.tiling import tiled_sr_batch
+    tree = _resolve_params(weights, factor)
+    return tiled_sr_batch(tree, [np.asarray(im) for im in images], factor,
+                          tile=tile, chunk=chunk, mesh=mesh,
+                          compute_dtype=torch.bfloat16 if fast else None,
+                          on_image_done=on_image_done,
+                          release_outputs=release_outputs, device=device)
 
 
 def upscale_bilinear(image: np.ndarray, factor: int = 3, *,

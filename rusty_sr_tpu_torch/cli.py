@@ -1,12 +1,14 @@
-"""Command-line interface: single-image upscale.
+"""Command-line interface: single-image and folder upscale, and watch.
 
 The flags keep the names of `rusty_sr_tpu/cli.py`.  The paths ported so
 far are both engines — xla (the default: u8 tiles in, u8 HR tiles out)
-and fused — in the exact (f32) tier and, with ``--fast``, the bf16 tier,
-and the ``-p bilinear`` and ``-d`` modes: the kernels on the card
-(``--platform gpu``, the default) or their plain PyTorch versions on the
-CPU (``--platform cpu``).  Flags and modes whose paths are not ported yet
-exit with code 2.
+and fused — in the exact (f32) tier and, with ``--fast``, the bf16 tier;
+the ``-p bilinear`` and ``-d`` modes; a folder as the input (every image
+in it upscaled into the output folder, tiles batched across images on
+the xla engine); and ``watch``, the resident serving mode.  Each runs the
+kernels on the card (``--platform gpu``, the default) or their plain
+PyTorch versions on the CPU (``--platform cpu``).  ``--mesh`` and
+``train`` are not ported yet and exit with code 2.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 
@@ -24,12 +27,16 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rusty-sr-torch",
         description="A convolutional neural network trained to upscale "
-                    "images (PyTorch and CUDA).")
+                    "images (PyTorch and CUDA). Run the `watch` subcommand "
+                    "to serve a folder.")
     p.add_argument("--version", action="version",
                    version="rusty_sr_tpu_torch v0.1.0")
-    p.add_argument("INPUT_FILE", help="input image to upscale")
+    p.add_argument("INPUT_FILE",
+                   help="input image to upscale, or a folder of images "
+                        "(tiles are then batched across images)")
     p.add_argument("OUTPUT_FILE",
-                   help="output file to write/overwrite (.png recommended)")
+                   help="output file to write/overwrite (.png recommended); "
+                        "a folder when INPUT_FILE is a folder")
     p.add_argument("-p", "--parameters",
                    choices=["imagenet", "imagenetlinear", "anime", "bilinear"],
                    help="which built-in parameters to use with the neural net")
@@ -51,28 +58,65 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", choices=["xla", "fused"], default="xla",
                    help="device engine: 'xla' (default), the trunk as conv "
                         "stages with u8 tiles in and out; 'fused', the "
-                        "trunk as one CUDA kernel")
+                        "trunk as one CUDA kernel (single images only)")
     p.add_argument("--mesh", metavar="SPEC", default=None,
                    help="shard tiles over several devices (not ported yet)")
     p.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
                    help="'gpu' (default; needs CUDA) or 'cpu' (the "
                         "kernels' plain PyTorch versions)")
+    p.add_argument("--trace", metavar="DIR", default=None,
+                   help="record a torch.profiler trace of the run to "
+                        "DIR/trace.json (Chrome trace format)")
     return p
+
+
+def build_watch_parser() -> argparse.ArgumentParser:
+    w = argparse.ArgumentParser(
+        prog="rusty-sr-torch watch",
+        description="Serving mode: watch a folder and upscale every image "
+                    "that appears in it. The process stays resident, so "
+                    "the weights and built kernels are loaded once, and "
+                    "new arrivals are batched across images.")
+    w.add_argument("INPUT_DIR", help="folder to watch for images")
+    w.add_argument("OUTPUT_DIR", help="upscaled images are written here")
+    w.add_argument("-p", "--parameters",
+                   choices=["imagenet", "imagenetlinear", "anime"],
+                   help="which built-in parameters to use")
+    w.add_argument("-c", "--custom", metavar="PARAMETER_FILE",
+                   help="custom parameter file (.rsr)")
+    w.add_argument("-f", "--factor", type=int, default=3)
+    w.add_argument("--fast", action="store_true",
+                   help="the fast tier (bf16 trunk), as for single images")
+    w.add_argument("--tile", type=int, default=242)
+    w.add_argument("--chunk", type=int, default=None)
+    w.add_argument("--poll", type=float, default=1.0,
+                   help="seconds between folder scans")
+    w.add_argument("--once", action="store_true",
+                   help="process the current folder contents and exit")
+    w.add_argument("--mesh", metavar="SPEC", default=None,
+                   help="shard tiles over several devices (not ported yet)")
+    w.add_argument("--metrics", metavar="FILE", default=None,
+                   help="append one JSONL record per processed group "
+                        "(images, failures, HR MPix, latency, MPix/s)")
+    w.add_argument("--trace", metavar="DIR", default=None,
+                   help="record a torch.profiler trace of the run to "
+                        "DIR/trace.json (pair with --once)")
+    w.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
+                   help="'gpu' (default; needs CUDA) or 'cpu'")
+    return w
 
 
 def _not_ported(args):
     """The first flag or mode the port cannot run yet, or None."""
     if args.mesh:
         return "--mesh"
-    if os.path.isdir(args.INPUT_FILE):
-        return "a folder input"
     return None
 
 
 def _fast_tier_tip(args) -> None:
     """One stderr line pointing exact-tier users of the default engine at
     ``--fast``."""
-    if not args.fast and args.engine == "xla":
+    if not args.fast and getattr(args, "engine", "xla") == "xla":
         print("tip: running the exact tier; --fast runs the bf16 tier, "
               "within 8 u8 codes and at least 45 dB of it", file=sys.stderr)
 
@@ -89,23 +133,28 @@ def device_for(platform: str):
     return torch.device("cuda")
 
 
+def _simple(args, img_u8, device) -> np.ndarray:
+    """``-d`` or ``-p bilinear`` on one image."""
+    from rusty_sr_tpu_torch.parallel.tiling import tiled_simple
+    if args.downsample:
+        f = args.factor
+        h, w, _ = img_u8.shape
+        return tiled_simple(img_u8[: h - h % f, : w - w % f], f,
+                            mode="downsample", device=device)
+    return tiled_simple(img_u8, args.factor, mode="bilinear", device=device)
+
+
 def _run_simple(args, img_u8, device) -> int:
     """The non-neural modes, ``-d`` and ``-p bilinear``."""
-    from rusty_sr_tpu_torch.parallel.tiling import tiled_simple
     from rusty_sr_tpu_torch.utils.imageio import save_image_u8
 
     if args.downsample:
         print("Downsampling using average pooling of linear RGB values...",
               end="", flush=True)
-        f = args.factor
-        h, w, _ = img_u8.shape
-        out = tiled_simple(img_u8[: h - h % f, : w - w % f], f,
-                           mode="downsample", device=device)
     else:
         print("Upscaling using bilinear interpolation...", end="",
               flush=True)
-        out = tiled_simple(img_u8, args.factor, mode="bilinear",
-                           device=device)
+    out = _simple(args, img_u8, device)
     print(" Writing file...", end="", flush=True)
     try:
         save_image_u8(args.OUTPUT_FILE, out)
@@ -116,9 +165,28 @@ def _run_simple(args, img_u8, device) -> int:
     return 0
 
 
+def _load_weights(args):
+    """The parameter tree of ``-c`` or ``-p`` (imagenet by default), or
+    the exit code after printing why it cannot be loaded."""
+    from rusty_sr_tpu_torch import params as params_lib
+    try:
+        if args.custom:
+            return params_lib.load_rsr_file(args.custom, args.factor)
+        return params_lib.load_builtin(args.parameters or "imagenet",
+                                       args.factor)
+    except OSError as e:
+        print(f"\nError opening parameter file: {e}", file=sys.stderr)
+        return 1
+    except ValueError as e:
+        src = args.custom or f"builtin '{args.parameters or 'imagenet'}'"
+        print(f"\nerror: {e} ({src}). Parameters selected do not have the "
+              "size required by the neural net. Ensure that the same factor "
+              "is used for upscaling and training.", file=sys.stderr)
+        return 1
+
+
 def run_upscale(args) -> int:
     import torch
-    from rusty_sr_tpu_torch import params as params_lib
     from rusty_sr_tpu_torch.parallel.tiling import tiled_sr
     from rusty_sr_tpu_torch.utils.imageio import (
         DECODE_ERRORS, check_codec, load_image_u8, save_image, save_image_u8)
@@ -135,6 +203,8 @@ def run_upscale(args) -> int:
         print(f"error: {missing} {_NOT_PORTED}", file=sys.stderr)
         return 2
     device = device_for(args.platform)
+    if os.path.isdir(args.INPUT_FILE):
+        return _run_upscale_folder(args, device)
     try:
         check_codec(args.INPUT_FILE)
         check_codec(args.OUTPUT_FILE)
@@ -150,30 +220,14 @@ def run_upscale(args) -> int:
         return _run_simple(args, img_u8, device)
 
     _fast_tier_tip(args)
-    if args.custom:
-        print("Upscaling using custom neural net parameters...", end="",
-              flush=True)
-        src = args.custom
-        loader = lambda: params_lib.load_rsr_file(args.custom, args.factor)  # noqa: E731
-    else:
-        name = args.parameters or "imagenet"
-        label = {"imagenet": "imagenet",
-                 "imagenetlinear": "linear loss imagenet",
-                 "anime": "anime"}[name]
-        print(f"Upscaling using {label} neural net parameters...", end="",
-              flush=True)
-        src = f"builtin '{name}'"
-        loader = lambda: params_lib.load_builtin(name, args.factor)  # noqa: E731
-    try:
-        tree = loader()
-    except OSError as e:
-        print(f"\nError opening parameter file: {e}", file=sys.stderr)
-        return 1
-    except ValueError as e:
-        print(f"\nerror: {e} ({src}). Parameters selected do not have the "
-              "size required by the neural net. Ensure that the same factor "
-              "is used for upscaling and training.", file=sys.stderr)
-        return 1
+    label = "custom" if args.custom else {
+        "imagenet": "imagenet", "imagenetlinear": "linear loss imagenet",
+        "anime": "anime"}[args.parameters or "imagenet"]
+    print(f"Upscaling using {label} neural net parameters...", end="",
+          flush=True)
+    tree = _load_weights(args)
+    if isinstance(tree, int):
+        return tree
 
     # The xla engine takes the u8 pixels as they are and returns u8 HR
     # pixels; the fused engine runs on f32 in [0, 1].
@@ -195,12 +249,397 @@ def run_upscale(args) -> int:
     return 0
 
 
+# --- Serving: folders and watch ---
+
+class _StableNamer:
+    """Output name per source path, stable for the namer's lifetime.
+
+    The first source to claim a stem keeps ``stem.png``; a later source
+    with the same stem ('a.png' then 'a.jpg', in one batch or in two
+    polls of the watcher) keeps its whole name ('a.jpg.png'), and where
+    that is taken too, a counter ('a.jpg.2.png'), so no two sources ever
+    write one file."""
+
+    def __init__(self):
+        self._owner: dict = {}   # output name -> source path
+
+    def __call__(self, f: str) -> str:
+        stem = os.path.splitext(os.path.basename(f))[0] + ".png"
+        if self._owner.setdefault(stem, f) == f:
+            return stem
+        cand = os.path.basename(f) + ".png"
+        k = 1
+        while self._owner.setdefault(cand, f) != f:
+            k += 1
+            cand = f"{os.path.basename(f)}.{k}.png"
+        return cand
+
+
+def _output_names(paths) -> list:
+    """Output file names for a batch of input paths (`_StableNamer`)."""
+    namer = _StableNamer()
+    return [namer(f) for f in paths]
+
+
+class _AsyncWriter:
+    """Write-behind PNG encoding for the folder and watch modes.
+
+    Each finished image is encoded on a worker thread (the native encoder
+    and Pillow release the interpreter lock) while the card computes
+    later chunks; at most ``2 * workers + 2`` writes wait, and `submit`
+    blocks beyond that, which holds the chunk loop back.  `finish` joins
+    the writes and returns their failures instead of raising mid-batch.
+    """
+
+    def __init__(self, workers: Optional[int] = None):
+        import concurrent.futures
+        import threading
+        if workers is None:
+            workers = max(1, min(8, os.cpu_count() or 2))
+        self._sem = threading.Semaphore(2 * workers + 2)
+        self._ex = concurrent.futures.ThreadPoolExecutor(workers)
+        self._futs: list = []   # (path, future)
+
+    def submit(self, path: str, img) -> None:
+        from rusty_sr_tpu_torch.utils.imageio import save_image_u8
+        self._sem.acquire()
+
+        def job():
+            try:
+                # One image a thread already fills the cores: no deflate
+                # threads within an image.
+                save_image_u8(path, img, png_threads=1)
+            finally:
+                self._sem.release()
+
+        self._futs.append((path, self._ex.submit(job)))
+
+    def finish(self) -> list:
+        """Join all writes; [(path, exception), ...] for the failures."""
+        fails = []
+        for path, fut in self._futs:
+            try:
+                fut.result()
+            except OSError as e:
+                fails.append((path, e))
+        self._futs = []
+        self._ex.shutdown(wait=True)
+        return fails
+
+
+# Decoded LR bytes per group of the folder and watch modes: one
+# `tiled_sr_batch` call each, with the next group decoded while this one
+# computes.  The HR outputs are written behind and released per image, so
+# this budget is what bounds the host memory held.
+_GROUP_LR_BYTES = 128 << 20
+
+
+def _decoded_groups(files, on_error=None):
+    """Yield [(index, u8 image), ...] groups of about `_GROUP_LR_BYTES` of
+    decoded pixels (read at call time), decoded on a
+    thread pool one group ahead of the consumer.  An unreadable file is
+    reported on stderr and skipped, or handed to ``on_error(index,
+    exc)`` (called on the producer thread).  Closing the generator early
+    stops the producer, which then drops the group it holds."""
+    import concurrent.futures
+    import queue
+    import threading
+    from collections import deque
+    from rusty_sr_tpu_torch.utils.imageio import DECODE_ERRORS, load_image_u8
+
+    budget_bytes = _GROUP_LR_BYTES
+    out_q: queue.Queue = queue.Queue(maxsize=1)
+    workers = max(1, min(8, os.cpu_count() or 2))
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                out_q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def decode(item):
+        i, f = item
+        try:
+            return i, load_image_u8(f)
+        except DECODE_ERRORS as e:
+            return i, e
+
+    def producer():
+        group, used = [], 0
+        try:
+            with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+                # A bounded window of decodes, not the whole folder at once.
+                futs: deque = deque()
+                it = iter(enumerate(files))
+
+                def refill():
+                    while len(futs) < 2 * workers and not stop.is_set():
+                        try:
+                            futs.append(ex.submit(decode, next(it)))
+                        except StopIteration:
+                            return
+
+                refill()
+                while futs and not stop.is_set():
+                    i, img = futs.popleft().result()
+                    refill()
+                    if isinstance(img, Exception):
+                        if on_error is not None:
+                            on_error(i, img)
+                        else:
+                            print(f"skipping {files[i]}: {img}",
+                                  file=sys.stderr)
+                        continue
+                    group.append((i, img))
+                    used += img.nbytes
+                    if used >= budget_bytes:
+                        if not put(group):
+                            return
+                        group, used = [], 0
+            if group and not put(group):
+                return
+            put(None)
+        except BaseException as e:   # the consumer raises it
+            put(e)
+
+    threading.Thread(target=producer, daemon=True).start()
+    try:
+        while True:
+            item = out_q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+def _upscale_group(args, tree, images, paths, writer, device) -> None:
+    """Upscale one decoded group of u8 ``images`` and hand each result to
+    ``writer`` under its path in ``paths``: the neural modes in one
+    `tiled_sr_batch` call, which submits each image the moment its last
+    tile is scattered; the non-neural ones (``tree`` None) through
+    `tiled_simple`, image by image."""
+    import torch
+    from rusty_sr_tpu_torch.parallel.tiling import tiled_sr_batch
+
+    if tree is None:
+        for img, path in zip(images, paths):
+            writer.submit(path, _simple(args, img, device))
+        return
+    tiled_sr_batch(tree, images, args.factor, tile=args.tile,
+                   chunk=args.chunk, device=device,
+                   compute_dtype=torch.bfloat16 if args.fast else None,
+                   on_image_done=lambda j, out: writer.submit(paths[j], out),
+                   release_outputs=True)
+
+
+def _run_upscale_folder(args, device) -> int:
+    """Folder mode: every image in INPUT_FILE upscaled into the folder
+    OUTPUT_FILE as ``stem.png``.
+
+    The neural path is a pipeline of three stages: a decode pool stages
+    bounded groups one group ahead; `tiled_sr_batch` keeps up to
+    ``_MAX_INFLIGHT`` chunks of tiles, which span images, on the card;
+    and each image is encoded on a write-behind pool the moment its last
+    tile is scattered.  The non-neural modes loop `tiled_simple` over the
+    images.  A failed write is reported and the run goes on; it then
+    exits 1, as it does when no image in the folder is readable."""
+    from rusty_sr_tpu_torch.train.data import list_images
+    from rusty_sr_tpu_torch.utils.imageio import codec
+
+    try:
+        codec()
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    simple = args.downsample or args.parameters == "bilinear"
+    if not simple and args.engine != "xla":
+        print(f"error: folder mode supports --engine xla only (got "
+              f"{args.engine!r})", file=sys.stderr)
+        return 2
+    files = list_images(args.INPUT_FILE)
+    if not files:
+        print(f"error: no images found in {args.INPUT_FILE!r}",
+              file=sys.stderr)
+        return 1
+    os.makedirs(args.OUTPUT_FILE, exist_ok=True)
+    out_paths = [os.path.join(args.OUTPUT_FILE, n)
+                 for n in _output_names(files)]
+    tree = None
+    if not simple:
+        tree = _load_weights(args)
+        if isinstance(tree, int):
+            return tree
+        _fast_tier_tip(args)
+    verb = ("Downsampling" if args.downsample else
+            "Upscaling (bilinear)" if simple else "Upscaling")
+    print(f"{verb} {len(files)} images" + ("" if simple else
+          " (tiles batched across images)") + "...", end="", flush=True)
+    writer = _AsyncWriter()
+    n_done = 0
+    try:
+        for group in _decoded_groups(files):
+            _upscale_group(args, tree, [im for _, im in group],
+                           [out_paths[i] for i, _ in group], writer, device)
+            n_done += len(group)
+    finally:
+        fails = writer.finish()
+    for path, e in fails:
+        print(f"\nCould not write output file: {path}: {e}",
+              file=sys.stderr)
+    if n_done == 0:
+        print("\nerror: no readable images", file=sys.stderr)
+        return 1
+    print(" Done")
+    return 0 if not fails else 1
+
+
+def _watch_scan(input_dir: str, done: dict, fails: dict) -> list:
+    """One watch poll: the [(path, mtime), ...] to process now, and the
+    bookkeeping pruned to what the folder holds now.
+
+    ``done`` maps a path to the mtime processed; ``fails`` maps it to
+    (mtime, failed attempts).  A file is skipped after three failed
+    attempts until its mtime changes (a file still being copied is
+    retried once the copy ends).  Entries of files no longer in the
+    folder are dropped, so a watcher's state stays the size of the
+    folder."""
+    from rusty_sr_tpu_torch.train.data import list_images
+
+    pending = []
+    current = set()
+    for f in list_images(input_dir):
+        current.add(f)
+        try:
+            mt = os.path.getmtime(f)
+        except OSError:
+            continue
+        if done.get(f) == mt:
+            continue
+        fmt, fc = fails.get(f, (None, 0))
+        if fmt is not None and fmt != mt:
+            fc = 0
+        if fc >= 3:
+            continue
+        pending.append((f, mt))
+    for d in (done, fails):
+        for f in [k for k in d if k not in current]:
+            del d[f]
+    return pending
+
+
+def run_watch(args) -> int:
+    """The resident serving mode: each poll upscales the new or changed
+    images of INPUT_DIR into OUTPUT_DIR, in groups through
+    `tiled_sr_batch`, until interrupted (or once, with ``--once``)."""
+    import json
+    import time
+
+    if args.custom and args.parameters:
+        print("error: --custom conflicts with --parameters", file=sys.stderr)
+        return 2
+    missing = _not_ported(args)
+    if missing:
+        print(f"error: {missing} {_NOT_PORTED}", file=sys.stderr)
+        return 2
+    tree = _load_weights(args)
+    if isinstance(tree, int):
+        return tree
+    if not os.path.isdir(args.INPUT_DIR):
+        print(f"error: {args.INPUT_DIR!r} is not a folder", file=sys.stderr)
+        return 1
+    device = device_for(args.platform)
+    os.makedirs(args.OUTPUT_DIR, exist_ok=True)
+    _fast_tier_tip(args)
+    mf = open(args.metrics, "a") if args.metrics else None
+    done: dict = {}
+    fails: dict = {}
+    pick_name = _StableNamer()
+    print(f"Watching {args.INPUT_DIR} (poll {args.poll}s; Ctrl-C to stop)",
+          flush=True)
+    try:
+        while True:
+            pending = _watch_scan(args.INPUT_DIR, done, fails)
+
+            def on_decode_error(i, e, _pending=pending):
+                # Possibly still being written: retried on later polls.
+                f, mt = _pending[i]
+                prev = fails.get(f)
+                fc = prev[1] if prev and prev[0] == mt else 0
+                fails[f] = (mt, fc + 1)
+                if fc + 1 >= 3:
+                    print(f"skipping {f}: {e}", file=sys.stderr)
+
+            for group in _decoded_groups([f for f, _ in pending],
+                                         on_error=on_decode_error):
+                batch = [pending[i] for i, _ in group]
+                imgs = [im for _, im in group]
+                t0 = time.time()
+                names = [pick_name(f) for f, _ in batch]
+                writer = _AsyncWriter()
+                try:
+                    _upscale_group(args, tree, imgs,
+                                   [os.path.join(args.OUTPUT_DIR, n)
+                                    for n in names], writer, device)
+                finally:
+                    # A failed write must not end the resident watcher.
+                    failed = dict(writer.finish())
+                n_ok = 0
+                for (f, mt), name in zip(batch, names):
+                    e = failed.get(os.path.join(args.OUTPUT_DIR, name))
+                    if e is not None:
+                        fails[f] = (mt, fails.get(f, (mt, 0))[1] + 1)
+                        print(f"could not write {name}: {e}",
+                              file=sys.stderr)
+                        continue
+                    done[f] = mt
+                    fails.pop(f, None)
+                    n_ok += 1
+                dt = time.time() - t0
+                px = sum(im.shape[0] * im.shape[1] for im in imgs) \
+                    * args.factor ** 2 / 1e6
+                print(f"upscaled {n_ok} image(s), {px:.1f} HR MPix "
+                      f"in {dt:.2f}s", flush=True)
+                if mf is not None:
+                    mf.write(json.dumps({
+                        "images": n_ok, "failed": len(imgs) - n_ok,
+                        "hr_mpix": round(px, 3), "latency_s": round(dt, 4),
+                        "mpix_per_s": round(px / max(dt, 1e-9), 2),
+                        "wall": time.time()}) + "\n")
+                    mf.flush()
+            if args.once:
+                return 0
+            time.sleep(args.poll)
+    except KeyboardInterrupt:
+        print("\nDone")
+        return 0
+    finally:
+        if mf is not None:
+            mf.close()
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in ("train", "watch"):
-        print(f"error: the {argv[0]} command {_NOT_PORTED}", file=sys.stderr)
+    if argv and argv[0] == "train":
+        print(f"error: the train command {_NOT_PORTED}", file=sys.stderr)
         return 2
-    return run_upscale(build_parser().parse_args(argv))
+    if argv and argv[0] == "watch":
+        args = build_watch_parser().parse_args(argv[1:])
+        runner = run_watch
+    else:
+        args = build_parser().parse_args(argv)
+        runner = run_upscale
+    if args.trace:
+        from rusty_sr_tpu_torch.utils.profiling import trace
+        with trace(args.trace):
+            return runner(args)
+    return runner(args)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 The contract of `rusty_sr_tpu/parallel/tiling.py::tiled_sr` with its two
 engines — "xla" (the default: the merged-conv trunk as separate conv
 stages) and "fused" (the trunk as one kernel) — in the exact (f32) and
-fast (bf16) tiers, and of its `tiled_simple`, the bilinear and downsample
-modes:
+fast (bf16) tiers; of its `tiled_sr_batch`, the xla engine over a list
+of images with chunks that span images (the folder and watch modes); and
+of its `tiled_simple`, the bilinear and downsample modes:
 
 - The image is cut into ``tile``-sided tiles, each with a HALO-px ring
   (the trunk's receptive-field radius, 7 LR px), gathered on the host
@@ -17,13 +18,17 @@ modes:
   quantised by the epilogue kernel.
 - Tiles run in chunks of a fixed size (the last chunk padded), and at
   most ``_MAX_INFLIGHT`` chunks are queued on the device before the
-  oldest is fetched and scattered.
+  oldest is fetched and scattered (`_run_chunks`, one loop for every
+  entry point).  On CUDA each chunk is gathered into a pinned host slot and
+  copied up and back with ``non_blocking=True``, so the host gathers and
+  scatters while the card computes.
 """
 
 from __future__ import annotations
 
+import threading
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -381,25 +386,158 @@ def _tile_kernel_packed(pp, zero_tiles, edge_tiles, mask_tiles, factor: int,
     return epilogue_cuda(total, factor, tile, h, to_u8=True, packed=True)
 
 
-def _gather_u8_range(img: np.ndarray, tile: int, h: int, nx: int, t0: int,
-                     t1: int, need_zero: bool = True):
-    """uint8 tiles [t0, t1) of the row-major grid, straight from the
-    unpadded image: (zero-padded or None, edge-padded, {0,1} mask), all
-    uint8.  ``need_zero=False`` skips the zero-padded tiles (the packed
-    kernel derives them on the device)."""
-    if img.dtype != np.uint8:
-        raise TypeError(f"expected a uint8 image, got {img.dtype}")
-    return native.gather_tiles_range(img, tile, h, nx, t0, t1,
-                                     need_zero=need_zero)
-
-
-def _gather_u8(img: np.ndarray, tile: int, h: int, ny: int, nx: int,
-               need_zero: bool = True):
-    """`_gather_u8_range` over the whole ny x nx grid."""
-    return _gather_u8_range(img, tile, h, nx, 0, ny * nx, need_zero)
-
-
 _NOT_PORTED = "is not ported yet to the PyTorch package"
+
+
+# --- The chunk pipeline shared by every tile entry point ---
+
+# Pinned host slots: one ring per device, a list of `_Slot`s for one
+# (input specs, output spec), replaced when a call needs another shape,
+# so that the pinned memory kept is one ring's.  A ring is taken out of
+# the dict while a call uses it, so that two concurrent calls never share
+# one.
+_RINGS: dict = {}          # device -> (specs, [_Slot, ...])
+_RINGS_LOCK = threading.Lock()
+
+
+class _Slot:
+    """One chunk's pinned host buffers — the kernel inputs it gathers into
+    and the result it copies back into — and the events that guard them:
+    the inputs are gathered again only after ``uploaded`` (the upload
+    has read them), the result is scattered only after ``fetched``."""
+
+    def __init__(self, in_specs, out_spec):
+        self.ins = [None if s is None else
+                    torch.empty(s[0], dtype=s[1], pin_memory=True)
+                    for s in in_specs]
+        self.out = torch.empty(out_spec[0], dtype=out_spec[1],
+                               pin_memory=True)
+        self.uploaded = torch.cuda.Event()
+        self.fetched = torch.cuda.Event()
+
+
+def _run_chunks(device: torch.device, n_tiles: int, chunk: int, in_specs,
+                out_spec, gather, run, scatter) -> None:
+    """Tiles [0, n_tiles) through ``run`` in chunks of ``chunk`` tiles
+    (the last one padded with zero tiles, so every chunk has one shape),
+    at most ``_MAX_INFLIGHT`` chunks queued on the device before the
+    oldest is fetched.
+
+    ``in_specs``: per input of ``run``, (chunk shape, dtype) or None for
+    an input it is given as None; ``out_spec`` the same for its result.
+    ``gather(g0, g1, bufs)`` writes tiles [g0, g1) into the first g1-g0
+    tiles of ``bufs`` (numpy arrays, None where the spec is None);
+    ``scatter(g0, res)`` takes their results as a numpy array.
+
+    On CUDA each chunk is gathered straight into a pinned slot of the
+    device's ring of ``_MAX_INFLIGHT + 1`` (kept until a call needs
+    another shape), copied up on an upload stream and its result copied
+    down on a download stream, both ``non_blocking=True``, so the next
+    chunk's upload and the previous one's download overlap this chunk's
+    kernels; the slot's events order the host's reuse of it after those
+    copies.  On the CPU every chunk gets fresh arrays and runs in order."""
+    pending: deque = deque()
+
+    def drain_one():
+        g0, cnt, res = pending.popleft()
+        if isinstance(res, _Slot):
+            res.fetched.synchronize()
+            res = res.out[:cnt]
+        scatter(g0, res[:cnt].numpy())
+
+    if device.type != "cuda":
+        for g0 in range(0, n_tiles, chunk):
+            g1 = min(g0 + chunk, n_tiles)
+            ins = [None if s is None else torch.zeros(s[0], dtype=s[1])
+                   for s in in_specs]
+            gather(g0, g1, [None if t is None else t.numpy() for t in ins])
+            pending.append((g0, g1 - g0, run(*ins)))
+            if len(pending) >= _MAX_INFLIGHT:
+                drain_one()
+        while pending:
+            drain_one()
+        return
+
+    specs = (tuple(in_specs), out_spec)
+    with _RINGS_LOCK:
+        kept, ring = _RINGS.pop(device, (None, []))
+    if kept != specs:
+        ring = []
+    try:
+        n_slots = _MAX_INFLIGHT + 1
+        compute = torch.cuda.current_stream(device)
+        up, down = torch.cuda.Stream(device), torch.cuda.Stream(device)
+        for k, g0 in enumerate(range(0, n_tiles, chunk)):
+            g1 = min(g0 + chunk, n_tiles)
+            if len(ring) <= k % n_slots:
+                ring.append(_Slot(in_specs, out_spec))
+            slot = ring[k % n_slots]
+            slot.uploaded.synchronize()
+            slot.fetched.synchronize()
+            bufs = [None if t is None else t.numpy() for t in slot.ins]
+            gather(g0, g1, bufs)
+            for b in bufs:
+                if b is not None:
+                    b[g1 - g0:] = 0
+            with torch.cuda.stream(up):
+                ins = [None if t is None else t.to(device, non_blocking=True)
+                       for t in slot.ins]
+                slot.uploaded.record(up)
+            compute.wait_event(slot.uploaded)
+            for t in ins:
+                if t is not None:
+                    t.record_stream(compute)
+            res = run(*ins)
+            down.wait_stream(compute)
+            res.record_stream(down)
+            with torch.cuda.stream(down):
+                slot.out[:g1 - g0].copy_(res[:g1 - g0], non_blocking=True)
+                slot.fetched.record(down)
+            pending.append((g0, g1 - g0, slot))
+            if len(pending) >= _MAX_INFLIGHT:
+                drain_one()
+        while pending:
+            drain_one()
+    finally:
+        with _RINGS_LOCK:
+            _RINGS[device] = (specs, ring)
+
+
+def _check_tier(compute_dtype) -> bool:
+    """True for the fast tier (bfloat16), False for the exact one."""
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, not "
+                         f"{compute_dtype}")
+    return compute_dtype == torch.bfloat16
+
+
+def _xla_runner(params, factor: int, tile: int, fast: bool, u8_io: bool,
+                device: torch.device):
+    """The xla engine's tile kernel with its weights on ``device``:
+    (run, use_packed).  The packed tier takes the fast tier on uint8
+    tiles of an even padded side; the flat tile kernel takes the rest."""
+    use_packed = fast and u8_io and (tile + 2 * HALO) % 2 == 0
+    if use_packed:
+        pp = prepare_stages({k: v.to(device) for k, v in
+                             packed_trunk_params(params, factor).items()})
+        return (lambda z, e, m: _tile_kernel_packed(pp, z, e, m, factor,
+                                                    tile)), True
+    fp = prepare_stages({k: v.to(device) for k, v in
+                         flat_trunk_params(params, fast).items()})
+    return (lambda z, e, m: _tile_kernel(fp, z, e, m, factor, tile, fast,
+                                         u8_io)), False
+
+
+def _tile_specs(chunk: int, tile: int, factor: int, u8_io: bool,
+                need_zero: bool):
+    """The chunk pipeline's specs of the neural tile kernels: zero-padded
+    tiles (or None), edge-padded tiles, masks; the HR tiles out."""
+    side = tile + 2 * HALO
+    dt = torch.uint8 if u8_io else torch.float32
+    tf = tile * factor
+    return ([((chunk, side, side, 3), dt) if need_zero else None,
+             ((chunk, side, side, 3), dt), ((chunk, side, side, 1), dt)],
+            ((chunk, tf, tf, 3), dt))
 
 
 def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
@@ -423,10 +561,7 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
     if engine not in ("xla", "fused"):
         raise ValueError(f"engine {engine!r} {_NOT_PORTED}; use 'xla' or "
                          "'fused'")
-    if compute_dtype not in (None, torch.float32, torch.bfloat16):
-        raise ValueError(f"compute_dtype must be float32 or bfloat16, not "
-                         f"{compute_dtype}")
-    fast = compute_dtype == torch.bfloat16
+    fast = _check_tier(compute_dtype)
     for knob, value, default in (("out16", out16, None),
                                  ("conv0_s2d", conv0_s2d, True),
                                  ("conv0_ws", conv0_ws, True),
@@ -448,61 +583,128 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
     h = HALO
     ny = max(1, -(-hgt // tile))
     nx = max(1, -(-wid // tile))
-    n_tiles = ny * nx
-    use_packed = (engine == "xla" and fast and u8_io
-                  and (tile + 2 * h) % 2 == 0)
-
-    def on_device(tree):
-        return {k: v.to(device) for k, v in tree.items()}
 
     if engine == "fused":
         cd = compute_dtype or torch.float32
-        packed = on_device(pack_trunk_weights(trunk_params(params), factor,
-                                              cd))
+        packed = {k: v.to(device) for k, v in pack_trunk_weights(
+            trunk_params(params), factor, cd).items()}
         run = lambda z, e, m: _tile_kernel_fused(  # noqa: E731
             packed, z, e, m, factor, tile, cd)
-    elif use_packed:
-        pp = prepare_stages(on_device(packed_trunk_params(params,
-                                                          factor)))
-        run = lambda z, e, m: _tile_kernel_packed(  # noqa: E731
-            pp, z, e, m, factor, tile)
+        use_packed = False
     else:
-        fp = prepare_stages(on_device(flat_trunk_params(params, fast)))
-        run = lambda z, e, m: _tile_kernel(  # noqa: E731
-            fp, z, e, m, factor, tile, fast, u8_io)
+        run, use_packed = _xla_runner(params, factor, tile, fast, u8_io,
+                                      device)
 
     out = np.zeros((hgt * factor, wid * factor, 3),
                    np.uint8 if u8_io else np.float32)
-    tf = tile * factor
-    pending: deque = deque()
-
-    def drain_one():
-        start, cnt, res = pending.popleft()
-        res = res[:cnt].cpu().numpy()
-        if u8_io:
-            _scatter_u8(res, start, nx, tf, out)
-        else:
-            native.scatter_tiles(res, start, nx, out)
-
-    for start in range(0, n_tiles, chunk):
-        stop = min(start + chunk, n_tiles)
-        cnt = stop - start
-        if u8_io:
-            tiles = _gather_u8_range(img, tile, h, nx, start, stop,
-                                     need_zero=not use_packed)
-        else:
-            tiles = native.gather_tiles_range(img, tile, h, nx, start, stop)
-        if cnt < chunk:  # pad the last chunk: one shape for every chunk
-            pad = ((0, chunk - cnt), (0, 0), (0, 0), (0, 0))
-            tiles = [None if t is None else np.pad(t, pad) for t in tiles]
-        res = run(*(None if t is None else torch.from_numpy(t).to(device)
-                    for t in tiles))
-        pending.append((start, cnt, res))
-        if len(pending) >= _MAX_INFLIGHT:
-            drain_one()
-    while pending:
-        drain_one()
+    in_specs, out_spec = _tile_specs(chunk, tile, factor, u8_io,
+                                     not use_packed)
+    _run_chunks(
+        device, ny * nx, chunk, in_specs, out_spec,
+        lambda g0, g1, bufs: native.gather_tiles_range(
+            img, tile, h, nx, g0, g1, need_zero=not use_packed, out=bufs),
+        run, lambda g0, res: native.scatter_tiles(res, g0, nx, out))
     return out
+
+
+def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
+                   chunk: Optional[int] = None,
+                   compute_dtype: Optional[torch.dtype] = None, mesh=None,
+                   on_image_done: Optional[Callable] = None,
+                   release_outputs: bool = False, device="cuda") -> list:
+    """Upscale a list of (H,W,3) images on the xla engine, with chunks of
+    tiles that span images, so that a folder of small images fills whole
+    chunks.  All images share one dtype (uint8 in gives uint8 out; float
+    in [0,1] gives float32 out), or ``ValueError``.  Returns the outputs
+    in input order.
+
+    The tier is `tiled_sr`'s: exact for ``compute_dtype`` None, fast for
+    bfloat16 (the packed tier on uint8 tiles of an even padded side, the
+    flat tier otherwise).  ``on_image_done(i, out)`` is called on the
+    caller's thread, in ascending ``i``, the moment image i's last tile
+    is scattered, while later chunks still compute: a caller that encodes
+    there overlaps the host with the card, and one that blocks holds the
+    chunk loop back.  ``release_outputs=True`` drops this function's
+    reference after the callback, so that slot of the returned list is
+    None.  ``mesh`` (sharding over several devices) is not ported yet."""
+    if mesh is not None:
+        raise ValueError(f"tiled_sr_batch(mesh=...) {_NOT_PORTED}")
+    fast = _check_tier(compute_dtype)
+    if not images:
+        return []
+    imgs = [np.asarray(im) for im in images]
+    u8_io = imgs[0].dtype == np.uint8
+    if not all((im.dtype == np.uint8) == u8_io for im in imgs):
+        raise ValueError("all images in a batch must share the input "
+                         "dtype (uint8 or float)")
+    if not u8_io:
+        imgs = [np.asarray(im, np.float32) for im in imgs]
+    if tile < 1:
+        raise ValueError(f"tile must be positive, got {tile}")
+    device = torch.device(device)
+    chunk = _DEFAULT_CHUNK if chunk is None else chunk
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    h = HALO
+    metas = [(max(1, -(-im.shape[0] // tile)), max(1, -(-im.shape[1] // tile)))
+             for im in imgs]                         # (ny, nx) per image
+    starts = np.cumsum([0] + [ny * nx for ny, nx in metas])
+    run, use_packed = _xla_runner(params, factor, tile, fast, u8_io, device)
+
+    def gather_range(g0: int, g1: int, bufs) -> None:
+        # Walk the images that the global tile range [g0, g1) meets and
+        # gather each one's image-local sub-range in place.
+        i = int(np.searchsorted(starts, g0, side="right")) - 1
+        pos = 0
+        while g0 < g1:
+            lo = g0 - int(starts[i])
+            hi = min(g1, int(starts[i + 1])) - int(starts[i])
+            native.gather_tiles_range(
+                imgs[i], tile, h, metas[i][1], lo, hi,
+                need_zero=not use_packed,
+                out=[None if b is None else b[pos:pos + hi - lo]
+                     for b in bufs])
+            pos += hi - lo
+            g0 = int(starts[i + 1])
+            i += 1
+
+    outs = [np.zeros((im.shape[0] * factor, im.shape[1] * factor, 3),
+                     np.uint8 if u8_io else np.float32) for im in imgs]
+    remain = [ny * nx for ny, nx in metas]     # undrained tiles per image
+    cursor = [0]                               # the image the drain is in
+    in_specs, out_spec = _tile_specs(chunk, tile, factor, u8_io,
+                                     not use_packed)
+    _run_chunks(device, int(starts[-1]), chunk, in_specs, out_spec,
+                gather_range, run,
+                lambda g0, res: _drain_batch_chunk(
+                    res, g0, starts, metas, outs, cursor, remain,
+                    on_image_done, release_outputs))
+    return outs
+
+
+def _drain_batch_chunk(res: np.ndarray, g0: int, starts, metas, outs,
+                       cursor: list, remain: list, on_image_done=None,
+                       release_outputs: bool = False) -> None:
+    """Scatter one fetched chunk, the results of global tiles [g0, g0 +
+    len(res)), across the images it spans (chunks are contiguous in the
+    global tile order; ``cursor`` carries the image index from one call
+    to the next).  When an image's undrained count in ``remain`` reaches
+    0, ``on_image_done`` fires for it at once."""
+    cnt, j = res.shape[0], 0
+    while j < cnt:            # one contiguous run of tiles per image
+        g = g0 + j
+        while g >= starts[cursor[0] + 1]:
+            cursor[0] += 1
+        idx = cursor[0]
+        run_len = min(cnt - j, int(starts[idx + 1]) - g)
+        native.scatter_tiles(res[j:j + run_len], g - int(starts[idx]),
+                             metas[idx][1], outs[idx])
+        j += run_len
+        remain[idx] -= run_len
+        if remain[idx] == 0 and on_image_done is not None:
+            on_image_done(idx, outs[idx])
+            if release_outputs:
+                outs[idx] = None
 
 
 def _tile_kernel_simple(edge_tiles: torch.Tensor, factor: int, tile: int,
@@ -540,19 +742,6 @@ def _gather_edge(img: np.ndarray, tile: int, h: int, ny: int, nx: int):
     return et
 
 
-def _scatter_u8(res: np.ndarray, start: int, nx: int, tf: int,
-                out: np.ndarray) -> None:
-    """Scatter uint8 HR tiles (grid indices start..) into `out`, cropping
-    at its far edges."""
-    for j in range(res.shape[0]):
-        iy, ix = divmod(start + j, nx)
-        rows = min(out.shape[0] - iy * tf, tf)
-        cols = min(out.shape[1] - ix * tf, tf)
-        if rows > 0 and cols > 0:
-            out[iy * tf:iy * tf + rows, ix * tf:ix * tf + cols] = \
-                res[j, :rows, :cols]
-
-
 def tiled_simple(image: np.ndarray, factor: int = 3, *, mode: str,
                  tile: int = 240, chunk: Optional[int] = None,
                  device="cuda") -> np.ndarray:
@@ -579,34 +768,18 @@ def tiled_simple(image: np.ndarray, factor: int = 3, *, mode: str,
     nx = max(1, -(-wid // tile))
     et = _gather_edge(img, tile, h, ny, nx)
     side = tile + 2 * h
-    n_tiles = ny * nx
     up = mode == "bilinear"
     tf = tile * factor if up else tile // factor
     oh, ow = (hgt * factor, wid * factor) if up else (hgt // factor,
                                                      wid // factor)
+    dt = torch.uint8 if u8_io else torch.float32
     out = np.zeros((oh, ow, 3), np.uint8 if u8_io else np.float32)
-    pending: deque = deque()
 
-    def drain_one():
-        start, cnt, res = pending.popleft()
-        res = res[:cnt].cpu().numpy()
-        if u8_io:
-            _scatter_u8(res, start, nx, tf, out)
-        else:
-            native.scatter_tiles(res, start, nx, out)
+    def gather(g0, g1, bufs):
+        bufs[0][:g1 - g0] = et[g0:g1]
 
-    for start in range(0, n_tiles, chunk):
-        stop = min(start + chunk, n_tiles)
-        eb = et[start:stop]
-        if stop - start < chunk:
-            eb = np.concatenate(
-                [eb, np.zeros((chunk - (stop - start), side, side, 3),
-                              et.dtype)])
-        res = _tile_kernel_simple(torch.from_numpy(eb).to(device), factor,
-                                  tile, mode, u8_io)
-        pending.append((start, stop - start, res))
-        if len(pending) >= _MAX_INFLIGHT:
-            drain_one()
-    while pending:
-        drain_one()
+    _run_chunks(device, ny * nx, chunk, [((chunk, side, side, 3), dt)],
+                ((chunk, tf, tf, 3), dt), gather,
+                lambda e: _tile_kernel_simple(e, factor, tile, mode, u8_io),
+                lambda g0, res: native.scatter_tiles(res, g0, nx, out))
     return out

@@ -5,10 +5,14 @@ alpha (no compositing) and divides by 255 with no gamma change; save
 clamps to [0,1], scales by 255, rounds half up (``floor(x*255 + 0.5)``)
 and writes an RGBA PNG.
 
-Pillow is imported lazily and used when it is installed.  Without it, a
-small codec on the standard library's `zlib` reads 8-bit non-interlaced
-RGB/RGBA PNGs (every filter type) and writes 8-bit RGBA PNGs.  Where no
-codec works, `check_codec` raises before any pixel reaches the device.
+PNGs go through the native codec (`utils/native.py`: a fixed Sub filter
+and a parallel deflate out, libpng in) where it builds.  What it declines
+(16-bit samples, a remapped gamma, a file that is not really a PNG) and
+every other format go to Pillow, imported lazily and used when it is
+installed.  Without Pillow, a small codec on the standard library's
+`zlib` reads 8-bit non-interlaced RGB/RGBA PNGs (every filter type) and
+writes 8-bit RGBA PNGs.  Where no codec works, `check_codec` raises
+before any pixel reaches the device.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import os
 import struct
 
 import numpy as np
+
+from rusty_sr_tpu_torch.utils import native
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -45,21 +51,36 @@ def _zlib():
     return zlib
 
 
-def codec() -> str:
-    """Name of the PNG codec in use: "PIL" or "zlib" (the stdlib codec)."""
+def _fallback():
+    """The codec behind the native one: "PIL", "zlib" (the stdlib codec)
+    or None."""
     if _pil() is not None:
         return "PIL"
     if _zlib() is not None:
         return "zlib"
-    raise RuntimeError("no PNG codec: install Pillow, or use a Python built "
-                       "with the zlib module")
+    return None
+
+
+def codec() -> str:
+    """The PNG encoder and decoder in use: "native" (with the fallback
+    that takes what it declines), "native encoder, <fallback> decoder"
+    (libpng missing), "PIL" or "zlib"."""
+    fallback = _fallback()
+    if native.png_decoder_available():
+        return f"native ({fallback or 'no'} fallback)"
+    if native.png_available() and fallback is not None:
+        return f"native encoder ({fallback} fallback), {fallback} decoder"
+    if fallback is None:
+        raise RuntimeError("no PNG codec: install Pillow, or use a Python "
+                           "built with the zlib module")
+    return fallback
 
 
 def check_codec(path: str) -> str:
     """Raise now, not after an upscale, when ``path`` cannot be written or
     read here; returns the codec's name."""
     name = codec()
-    if name != "PIL" and not path.lower().endswith(".png"):
+    if _pil() is None and not path.lower().endswith(".png"):
         raise ValueError(f"{path!r}: without Pillow only .png files can be "
                          "read or written")
     return name
@@ -166,8 +187,28 @@ def png_decode(data: bytes) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Public entry points.
 
+def _read_native(path: str):
+    """(H,W,3) u8 through the native decoder, or None: for a name without
+    the .png extension, a file without the PNG signature (a mis-named
+    file, which Pillow sniffs) or one the decoder declines."""
+    if not path.lower().endswith(".png") or \
+            not native.png_decoder_available():
+        return None
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None       # the fallback reports the error
+    if data[:8] != _PNG_SIG:
+        return None
+    return native.png_decode(data)
+
+
 def load_image_u8(path: str) -> np.ndarray:
     """PNG (any image Pillow reads, with Pillow) -> (H,W,3) u8, alpha dropped."""
+    u8 = _read_native(path)
+    if u8 is not None:
+        return u8
     Image = _pil()
     if Image is not None:
         try:
@@ -180,26 +221,38 @@ def load_image_u8(path: str) -> np.ndarray:
         return png_decode(f.read())
 
 
-def save_image_u8(path: str, u8: np.ndarray) -> None:
+def _write_replacing(path: str, data: bytes) -> None:
+    """Write to a temporary name and rename, so that a failed or
+    interrupted write leaves no truncated file."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def save_image_u8(path: str, u8: np.ndarray, png_threads: int = 0) -> None:
     """(H,W,3) u8 -> RGBA PNG (plain RGB for formats without alpha).
-    The stdlib codec writes to a temporary name and renames, so a failed
-    write leaves no truncated file."""
+    ``png_threads``: the native encoder's deflate threads (0: its rule,
+    one per started MB); writers that already run one image a thread
+    pass 1.  The native and stdlib codecs write to a temporary name and
+    rename."""
     u8 = np.ascontiguousarray(u8, np.uint8)
+    if path.lower().endswith(".png"):
+        data = native.png_encode(u8, level=_PNG_LEVEL, threads=png_threads)
+        if data is not None:
+            _write_replacing(path, data)
+            return
     Image = _pil()
     if Image is None:
         check_codec(path)
-        data = png_encode(u8)
-        tmp = f"{path}.tmp.{os.getpid()}"
-        try:
-            with open(tmp, "wb") as f:
-                f.write(data)
-            os.replace(tmp, path)
-        except BaseException:
-            try:
-                os.unlink(tmp)
-            except OSError:
-                pass
-            raise
+        _write_replacing(path, png_encode(u8))
         return
     img = Image.fromarray(u8)
     if path.lower().endswith((".png", ".tif", ".tiff", ".webp")):

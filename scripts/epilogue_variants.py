@@ -174,9 +174,9 @@ def main() -> int:
                                         + ((0, 0),) * 3)).to(dev) for t in ts]
 
     nx = -(-lr.shape[1] // 242)
-    xl = pad24(tiling._gather_u8_range(lr, 242, H, nx, 0, 20))
-    fl = pad24(tiling._gather_u8_range(lr, 241, H, -(-lr.shape[1] // 241), 0,
-                                       20))
+    xl = pad24(native.gather_tiles_range(lr, 242, H, nx, 0, 20))
+    fl = pad24(native.gather_tiles_range(lr, 241, H, -(-lr.shape[1] // 241),
+                                         0, 20))
     fz, fe, fm = pad24(native.gather_tiles_range(img, 242, H, nx, 0, 20))
     packed3 = {k: v.to(dev) for k, v in trunk.pack_trunk_weights(
         tiling.trunk_params(anime), 3, torch.float32).items()}

@@ -494,3 +494,73 @@ def test_cuda_conv_stage_rejects_bad_epilogues(cuda_device):
         stage = FusedStage(w, dataclasses.replace(epi, **change))
         with pytest.raises((TypeError, ValueError)):
             conv_stage.conv_stage(x, stage, odt)
+
+
+# The serving path: tiled_sr_batch over ragged images with pinned slots.
+# Every chunk goes through one ring slot; a slot reused before its copy
+# lands would give wrong tiles with no error, so the outputs must be
+# byte-identical at any in-flight depth.
+SERVING_SHAPES = [(130, 97), (61, 200), (16, 16), (243, 241), (75, 30)]
+
+
+def serving_images():
+    r = np.random.default_rng(31)
+    return [r.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in SERVING_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier,tile,bound", [
+    ("exact", 62, 1), ("packed", 62, 4), ("flat", 61, 4)])
+def test_cuda_batch_pinned_slots(cuda_device, monkeypatch, tier, tile,
+                                 bound):
+    anime = load_builtin("anime")
+    imgs = serving_images()
+    cd = None if tier == "exact" else torch.bfloat16
+    runs = {}
+    for depth in (8, 1, 2):
+        monkeypatch.setattr(tiling, "_MAX_INFLIGHT", depth)
+        before = shuffle.EPILOGUE_LAUNCHES
+        runs[depth] = tiling.tiled_sr_batch(
+            anime, imgs, 3, tile=tile, chunk=4, compute_dtype=cd,
+            device=cuda_device)
+        assert shuffle.EPILOGUE_LAUNCHES > before
+    first = runs[8]
+    for key, outs in runs.items():
+        for a, b in zip(outs, first):
+            assert a.tobytes() == b.tobytes(), key
+    # One ring per device, of the last call's shape and at most the
+    # deepest window's slots; another shape replaces it.
+    specs, ring = tiling._RINGS[torch.device(cuda_device)]
+    assert specs[1][0] == (4, tile * 3, tile * 3, 3) and len(ring) <= 9
+    tiling.tiled_sr(anime, imgs[2], 3, tile=tile + 2, chunk=4,
+                    compute_dtype=cd, device=cuda_device)
+    specs, ring = tiling._RINGS[torch.device(cuda_device)]
+    assert specs[1][0] == (4, (tile + 2) * 3, (tile + 2) * 3, 3)
+    assert len(ring) == 1
+    for img, out in zip(imgs, first):
+        one = tiling.tiled_sr(anime, img, 3, tile=tile, chunk=4,
+                              compute_dtype=cd, device=cuda_device)
+        assert out.shape == one.shape == (img.shape[0] * 3,
+                                          img.shape[1] * 3, 3)
+        assert np.abs(out.astype(int) - one.astype(int)).max() <= bound
+
+
+@pytest.mark.cuda
+def test_cuda_batch_callbacks_and_simple_modes(cuda_device):
+    anime = load_builtin("anime")
+    imgs = serving_images()
+    done = []
+    outs = tiling.tiled_sr_batch(
+        anime, imgs, 3, tile=62, chunk=4, compute_dtype=torch.bfloat16,
+        device=cuda_device, release_outputs=True,
+        on_image_done=lambda i, out: done.append((i, out.copy())))
+    assert outs == [None] * len(imgs)
+    assert [i for i, _ in done] == list(range(len(imgs)))
+    for img in imgs[:2]:
+        for mode in ("bilinear", "downsample"):
+            got = tiling.tiled_simple(img[:129, :96], 3, mode=mode, tile=30,
+                                      chunk=4, device=cuda_device)
+            want = tiling.tiled_simple(img[:129, :96], 3, mode=mode, tile=30,
+                                       chunk=4, device="cpu")
+            assert np.abs(got.astype(int) - want.astype(int)).max() <= 1

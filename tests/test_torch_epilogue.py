@@ -119,8 +119,7 @@ def test_tile_kernels_leave_the_base_to_the_epilogue(monkeypatch, form):
                                             dtype=np.uint8)
     if not u8:
         img = img.astype(np.float32) / 255.0
-    z, e, m = (tiling._gather_u8_range(img, tile, H, 2, 0, 4) if u8 else
-               tiling.native.gather_tiles_range(img, tile, H, 2, 0, 4))
+    z, e, m = tiling.native.gather_tiles_range(img, tile, H, 2, 0, 4)
     z, e, m = (torch.from_numpy(t) for t in (z, e, m))
     side = tile if form == "fused" else tile + 2 * H
     expand = torch.from_numpy(np.random.default_rng(6).normal(

@@ -228,6 +228,7 @@ def test_png_decode_rejects_what_it_cannot_read(tmp_path):
 
 def test_without_pillow_the_stdlib_codec_round_trips(tmp_path, monkeypatch):
     monkeypatch.setattr(imageio, "_pil", lambda: None)
+    monkeypatch.setattr(imageio.native, "_load_build", lambda name: None)
     assert imageio.codec() == "zlib"
     img = rng(9).random((7, 10, 3), dtype=np.float32)
     imageio.save_image(str(tmp_path / "o.png"), img)

@@ -73,7 +73,8 @@ def assert_bf16_class(fast, exact):
 def test_gather_u8_range_matches_jax(tile, t0, t1, need_zero):
     img = u8_image((40, 56, 3), 1)
     nx = -(-56 // tile)
-    got = tiling._gather_u8_range(img, tile, H, nx, t0, t1, need_zero)
+    got = tiling.native.gather_tiles_range(img, tile, H, nx, t0, t1,
+                                           need_zero)
     want = jt._gather_u8_range(img, tile, H, nx, t0, t1, need_zero)
     for g, w in zip(got, want):
         if w is None:
@@ -85,17 +86,22 @@ def test_gather_u8_range_matches_jax(tile, t0, t1, need_zero):
 
 def test_gather_u8_whole_grid_matches_jax():
     img = u8_image((23, 31, 3), 2)
-    got = tiling._gather_u8(img, 10, H, 3, 4)
+    got = tiling.native.gather_tiles_range(img, 10, H, 4, 0, 12)
     want = jt._gather_u8(img, 10, H, 3, 4)
     for g, w in zip(got, want):
-        assert g.tobytes() == w.tobytes()
-    with pytest.raises(TypeError, match="uint8"):
-        tiling._gather_u8(img.astype(np.float32), 10, H, 3, 4)
+        assert g.dtype == np.uint8 and g.tobytes() == w.tobytes()
+    # A float image takes the f32 gather: the same tiles, as float32.
+    got_f = tiling.native.gather_tiles_range(img.astype(np.float32), 10, H,
+                                             4, 0, 12)
+    for g, w in zip(got_f, want):
+        assert g.dtype == np.float32
+        np.testing.assert_array_equal(g, w.astype(np.float32))
 
 
 def tiles_u8(img, tile, count, need_zero=True):
     nx = -(-img.shape[1] // tile)
-    return tiling._gather_u8_range(img, tile, H, nx, 0, count, need_zero)
+    return tiling.native.gather_tiles_range(img, tile, H, nx, 0, count,
+                                            need_zero)
 
 
 def run_port_flat(params, z, e, m, tile, fast, u8_io):
