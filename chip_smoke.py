@@ -56,6 +56,24 @@ Phases, each fatal on failure:
    HR MPix/s and the device's busy share under torch.profiler, the peak
    device memory, the PNG encoders' MPix/s and the single-image CLI's
    wall time again;
+4c. train on a folder of eight synthetic 512x384 PNGs at full width
+   (width 32, x3, crop 192), each counted run with the counts set to 0
+   before it: ``train`` through the CLI in the f32 merged tier from the
+   anime weights, 30 steps with checkpoints and validation every 10 (the
+   epilogue kernel ran in its f32 form; a 1,043,676-byte .rsr; JSONL at
+   steps 1, 10, 20, 30) and ``--resume`` to step 35; `train_folder` with
+   ``amp`` and with the packed trunk at batch 32, 100 steps each from a
+   fresh init (the loss of step 1's batch after them finite and no higher
+   than at step 1); one f32 step on the
+   card against the CPU (loss rel 1e-5, each gradient leaf 1e-4 of its
+   max, parameters after 10 steps atol 1e-4) and against a float64 CPU
+   step (1e-4 of each leaf's max: the TF32 witness, beside the same step
+   with TF32 allowed); validation PSNR with the epilogue kernel against
+   its plain version (1e-6 dB); and ms/step and samples/s of the loop's
+   step (a CUDA graph) and of the eager step in turns, their busy shares
+   and the convolutions' share of the eager step's kernel time
+   (torch.profiler), and the peak memory, for f32, amp and packed at
+   batch 4 and 32;
 5. time each kernel, its plain version and, where one exists, the one
    PyTorch call for the same function (cuDNN's bf16 conv for the conv
    stage) with CUDA events, in turns, beside its bound (the larger of
@@ -74,8 +92,8 @@ Phases, each fatal on failure:
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel (the conv stage once per stage of each fast tier) with
-its launches (summed over the CLI and serving paths above), error,
-times and bound.
+its launches (summed over the CLI, serving and training paths above),
+error, times and bound.
 Without a CUDA device, or outside the repository, it
 exits non-zero and prints no result.
 """
@@ -114,6 +132,28 @@ def synthetic_image(rng, h: int, w: int) -> np.ndarray:
     base += ((xx // 64 + yy // 48) % 2)[..., None] * 0.25
     base += rng.normal(0.0, 0.05, base.shape)
     return (np.clip(base, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+
+def train_image(rng, h: int, w: int) -> np.ndarray:
+    """A training image, as u8 (H, W, 3): flat discs and boxes with hard
+    edges over gradients, a fine sinusoidal texture and noise of sigma 1%
+    (`synthetic_image`'s 5% noise would set an MSE floor of 0.0025, about
+    an untrained net's loss)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([xx / w, yy / h, 0.5 + 0.3 * np.sin(xx / 23.0 + yy / 31.0)],
+                   axis=-1)
+    for _ in range(24):
+        cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(8, 60)
+        col = rng.uniform(0, 1, 3).astype(np.float32)
+        if rng.random() < 0.5:
+            img[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = col
+        else:
+            img[(np.abs(yy - cy) < r)
+                & (np.abs(xx - cx) < r * rng.uniform(0.3, 2))] = col
+    fr = rng.uniform(0.2, 0.8)
+    img += 0.08 * np.sin(xx * fr + yy * fr * 0.7)[..., None]
+    img += rng.normal(0.0, 0.01, img.shape)
+    return (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
 
 def cuda_time_ms(fn, iters: int = 10) -> float:
@@ -491,6 +531,319 @@ def serving_phase(cli, tiling, imageio, native, anime, rng, card,
     return got
 
 
+def step_flops(batch: int, crop: int, packed: bool, n: int = 32,
+               e: int = 27) -> float:
+    """Operations of one training step's convolutions: the forward's
+    2 * pixels * sum(k^2 * Cin * Cout) at the LR side crop/3, and twice
+    that again for the backward (input and weight gradients; conv0's
+    input gradient, which is not needed, included).  The packed trunk
+    runs every conv as 3x3 taps over the 2x2 space-to-depth grid, which
+    counts the zero taps too: 144/100 of a 5x5 conv's products and 144/36
+    of a 3x3's."""
+    taps = ((25, 3, n), (25, n, 3 * n), (9, n, 2 * n + e), (9, n, n + e),
+            (9, n, e))
+    px = batch * (crop // 3) ** 2
+    if packed:
+        macs = sum(144 / 4 * ci * co for _, ci, co in taps)
+    else:
+        macs = sum(k * ci * co for k, ci, co in taps)
+    return 3 * 2.0 * px * macs
+
+
+def training_phase(cli, tiling, shuffle, params, imageio, rng, card,
+                   zero_counts, counts):
+    """Training on a folder of eight synthetic 512x384 PNGs: the CLI's
+    f32 merged run at full width with resume, `api.train_folder` with
+    --amp and --trunk packed --batch 32, the card's step against the CPU's
+    and against float64, validation with the epilogue kernel against its
+    plain version, and the step times.  Returns the launches of the
+    counted runs: {"epi": n}."""
+    import contextlib
+    import io
+    import torch
+    from rusty_sr_tpu_torch import api
+    from rusty_sr_tpu_torch.ops.conv import tf32_on_bf16
+    from rusty_sr_tpu_torch.train import checkpoint as ck
+    from rusty_sr_tpu_torch.train import loop as TL
+    from rusty_sr_tpu_torch.train.data import CropPipeline
+
+    dev = torch.device("cuda")
+    got = {"epi": 0}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        src = os.path.join(tmp, "in")
+        os.makedirs(src)
+        for i in range(8):
+            imageio.save_image_u8(os.path.join(src, f"t{i}.png"),
+                                  train_image(rng, 384, 512))
+        anime_rsr = os.path.join(params._builtin_dir(), "anime.rsr")
+
+        def out(name):
+            return os.path.join(tmp, name)
+
+        def train_cli(argv, what):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["train", *argv])
+            text = buf.getvalue()
+            print("\n".join("  | " + ln for ln in text.splitlines()))
+            if rc != 0:
+                fail(f"train CLI {what} exited {rc}")
+            return text
+
+        # 1. The CLI, f32 merged, full width, from the anime weights.
+        ckd, mjs, rsr = out("ck"), out("m.jsonl"), out("out.rsr")
+        zero_counts()
+        t0 = time.time()
+        train_cli([rsr, src, "-s", anime_rsr, "-v", src, "-m", "2",
+                   "--max_steps", "30", "--ckpt_every", "10", "--val_every",
+                   "10", "--ckpt_dir", ckd, "--metrics", mjs], "f32 merged")
+        wall = time.time() - t0
+        n = counts()
+        got["epi"] += n["epi"]
+        with open(mjs) as f:
+            recs = [json.loads(line) for line in f]
+        size = os.path.getsize(rsr)
+        params.load_rsr_file(rsr, 3)
+        print(f"train CLI f32 merged, 30 steps of batch 4, crop 192, "
+              f"validation on 2 images every 10: {wall:.2f} s wall (host "
+              f"clock, the process's first training run); .rsr {size} "
+              f"bytes; epilogue launches {n['epi']}; JSONL steps "
+              f"{[r['step'] for r in recs]}, losses "
+              f"{[round(r['loss'], 6) for r in recs]}, val PSNR "
+              f"{[round(r.get('val_psnr', float('nan')), 4) for r in recs]}")
+        if size != 1_043_676 or [r["step"] for r in recs] != [1, 10, 20, 30] \
+                or not all(np.isfinite(r.get("val_psnr", np.nan))
+                           for r in recs):
+            fail("the train CLI's .rsr or metrics are wrong")
+        if n["epi"] < 1:
+            fail("training's validation launched no epilogue kernel")
+        zero_counts()
+        text = train_cli([rsr, src, "--ckpt_every", "10", "--ckpt_dir", ckd,
+                          "--max_steps", "35", "--resume"], "resume")
+        got["epi"] += counts()["epi"]
+        last = ck.latest_native(ckd)
+        print(f"train CLI --resume --max_steps 35: latest checkpoint "
+              f"{os.path.basename(last)}")
+        if "Resumed from" not in text or "at step 30" not in text or \
+                not last.endswith("step_00000035"):
+            fail("the train CLI did not resume from step 30 to step 35")
+
+        # 2. --amp, then --trunk packed --batch 32, through the API, from a
+        # fresh init at full width.  The reference's Adam first raises the
+        # loss of an untrained net (its first steps move every weight by
+        # about the learning rate) and takes ~50 steps to bring it back
+        # below step 1's (measured on the CPU), so each runs 100 steps,
+        # and the loss compared is that of step 1's batch (the feed's
+        # first, from its seed) before and after, free of the batches'
+        # spread.
+        init = params.init_params(SEED, 3)
+        for name, kw in (("--amp", dict(amp=True)),
+                         ("--trunk packed --batch 32",
+                          dict(trunk="packed", batch_size=32))):
+            mf = out(name.replace(" ", "").replace("-", "") + ".jsonl")
+            c = TL.TrainConfig(**kw)
+            zero_counts()
+            t0 = time.time()
+            tree = api.train_folder(src, steps=100, start=init,
+                                    metrics_file=mf, checkpoint_every=20,
+                                    device="cuda", **kw)
+            wall = time.time() - t0
+            got["epi"] += counts()["epi"]
+            with open(mf) as f:
+                recs = [json.loads(line) for line in f]
+            pipe = CropPipeline(src, crop=(192, 192),
+                                batch_size=c.batch_size, seed=0,
+                                out_dtype=np.uint8)
+            try:
+                b1 = torch.from_numpy(pipe.next_batch()).to(dev)
+            finally:
+                pipe.close()
+            with torch.no_grad(), TL.step_precision(c):
+                before, after = (float(TL.loss_fn(params.to_torch(t, dev),
+                                                  b1, c)[0])
+                                 for t in (init, tree))
+            print(f"train_folder {name}, 100 steps: {wall:.2f} s wall (host "
+                  f"clock); losses at steps {[r['step'] for r in recs]}: "
+                  f"{[round(r['loss'], 6) for r in recs]}; step 1's batch "
+                  f"{before:.6g} before, {after:.6g} after")
+            if not (abs(recs[0]["loss"] - before) <= 1e-5 * before
+                    and np.isfinite(after) and after <= before
+                    and all(np.isfinite(v).all() for v in tree.values())):
+                fail(f"train_folder {name} did not reduce the loss")
+
+        # 3. The card's f32 step against the CPU's (the plain path), and
+        # against float64 (the TF32 witness).
+        cfg = TL.TrainConfig()
+        pipe = CropPipeline(src, crop=(192, 192), batch_size=32, seed=SEED,
+                            workers=4, out_dtype=np.uint8)
+        try:
+            big = pipe.next_batch()
+            small_batches = [pipe.next_batch()[:4] for _ in range(10)]
+        finally:
+            pipe.close()
+
+        def run_steps(device, dtype, batches, ctx=None):
+            """The training loop's step (`make_train_step`: on the card its
+            CUDA graph, on the CPU the plain step), or with ``ctx`` the
+            eager step with that conv precision in place of its own."""
+            p = {k: torch.tensor(v, dtype=dtype, device=device,
+                                 requires_grad=True) for k, v in init.items()}
+            step, opt = TL.make_train_step(cfg, p)
+            first = None
+            for hr in batches:
+                x = torch.from_numpy(hr).to(device)
+                if dtype == torch.float64:
+                    x = (x.float() * (1.0 / 255.0)).double()
+                if ctx is None:
+                    loss, _ = step(x)
+                else:
+                    opt.zero_grad(set_to_none=True)
+                    with ctx():
+                        loss, _ = TL.loss_fn(p, x, cfg)
+                        loss.backward()
+                    opt.step()
+                if first is None:
+                    first = (float(loss.detach()),
+                             {k: v.grad.double().cpu().numpy()
+                              for k, v in p.items()})
+            return first, {k: v.detach().double().cpu().numpy()
+                           for k, v in p.items()}
+
+        (l_card, g_card), p_card = run_steps(dev, torch.float32,
+                                             small_batches)
+        (l_cpu, g_cpu), p_cpu = run_steps("cpu", torch.float32,
+                                          small_batches)
+        (l_64, g_64), _ = run_steps("cpu", torch.float64, small_batches[:1])
+        (_, g_tf32), _ = run_steps(dev, torch.float32, small_batches[:1],
+                                   tf32_on_bf16)
+
+        def leaf_err(a, b):
+            return max(float(np.abs(a[k] - b[k]).max())
+                       / float(np.abs(b[k]).max()) for k in b)
+        rel = abs(l_card - l_cpu) / abs(l_cpu)
+        g_err, g64_err, tf32_err = (leaf_err(g_card, g_cpu),
+                                    leaf_err(g_card, g_64),
+                                    leaf_err(g_tf32, g_64))
+        p_err = max(float(np.abs(p_card[k] - p_cpu[k]).max()) for k in init)
+        print(f"f32 step, card vs CPU (init_params({SEED}, 3), batch 4, crop "
+              f"192): loss {l_card:.8g} vs {l_cpu:.8g} (rel {rel:.3g}, tol "
+              f"1e-5); worst gradient leaf {g_err:.3g} of its max (tol "
+              f"1e-4); parameters after 10 steps max abs {p_err:.3g} (tol "
+              f"1e-4)")
+        print(f"TF32 witness: the card's f32 gradients vs a float64 CPU "
+              f"step: worst leaf {g64_err:.3g} of its max (tol 1e-4); the "
+              f"same step with TF32 allowed: {tf32_err:.3g}")
+        if not (rel <= 1e-5 and g_err <= 1e-4 and p_err <= 1e-4
+                and g64_err <= 1e-4):
+            fail("the card's f32 training step disagrees with the CPU or "
+                 "with float64")
+
+        # 4. Validation with the epilogue kernel against its plain version.
+        val = [imageio.load_image_u8(os.path.join(src, f"t{i}.png"))
+               .astype(np.float32) / 255.0 for i in range(2)]
+        host = params.load_rsr_file(rsr, 3)
+        psnr_k = TL.validation_psnr(host, val, cfg, device=dev)
+        saved = tiling.epilogue_cuda
+        tiling.epilogue_cuda = shuffle.epilogue_reference
+        try:
+            psnr_p = TL.validation_psnr(host, val, cfg, device=dev)
+        finally:
+            tiling.epilogue_cuda = saved
+        psnr_c = TL.validation_psnr(host, val, cfg, device="cpu")
+        print(f"validation PSNR, 2 images: kernel {psnr_k!r} dB, plain "
+              f"version {psnr_p!r} dB (tol 1e-6), CPU {psnr_c!r} dB")
+        if not abs(psnr_k - psnr_p) <= 1e-6 or not abs(psnr_k - psnr_c) \
+                <= 1e-3:
+            fail("validation PSNR through the kernel disagrees")
+
+        # 5. Step times of the loop's step (its CUDA graph) and of the
+        # plain eager step, in turns per batch size; under torch.profiler
+        # the busy share of each and the convolutions' share of the eager
+        # step's kernel time (a graph's replay runs no framework ops to
+        # attribute kernels to); the peak memory of the graphed step.
+        tiers = (("f32", dict()), ("--amp", dict(amp=True)),
+                 ("--trunk packed", dict(trunk="packed")))
+        rows = {}
+        for bsz in (4, 32):
+            x = torch.from_numpy(big[:bsz]).to(dev)
+            states = {}
+            for name, kw in tiers:
+                c = TL.TrainConfig(batch_size=bsz, **kw)
+                pe = {k: torch.tensor(v, device=dev, requires_grad=True)
+                      for k, v in init.items()}
+                oe = TL.make_optimizer(c, pe)
+                pg = {k: torch.tensor(v, device=dev, requires_grad=True)
+                      for k, v in init.items()}
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                graph, _ = TL.make_train_step(c, pg)
+                for _ in range(5):
+                    graph(x)
+                torch.cuda.synchronize()
+                rows[(name, bsz)] = {
+                    "peak": torch.cuda.max_memory_allocated() - base}
+                for _ in range(5):
+                    TL.train_step(pe, oe, x, c)
+                states[name] = {
+                    "graph": lambda g=graph: g(x),
+                    "eager": lambda p=pe, o=oe, c=c: TL.train_step(p, o, x,
+                                                                   c)}
+            order = [(n, m) for n, _ in tiers for m in ("graph", "eager")]
+            ms = {key: [] for key in order}
+            for n, m in order + order[::-1]:
+                ms[(n, m)].append(cuda_time_ms(states[n][m], iters=20))
+            for name, _ in tiers:
+                r = rows[(name, bsz)]
+                for mode in ("graph", "eager"):
+                    with torch.profiler.profile(activities=[
+                            torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        for _ in range(10):
+                            states[name][mode]()
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                    share = busy_share(prof, wall)
+                    r[mode] = sum(ms[(name, mode)]) / 2
+                    r["busy " + mode] = None if share is None else share[0]
+                    if mode == "eager":
+                        conv_us = sum(
+                            getattr(e, "device_time_total",
+                                    getattr(e, "cuda_time_total", 0))
+                            for e in prof.key_averages()
+                            if e.key in ("aten::convolution",
+                                         "aten::convolution_backward"))
+                        r["conv"] = (None if share is None else
+                                     conv_us * 1e-6 / (share[0] * wall))
+                flops = step_flops(bsz, 192, name == "--trunk packed")
+                r["bound"] = (flops / PEAK_F32 * 1e3, flops / PEAK_BF16 * 1e3)
+
+                def pct(v):
+                    return "not measured" if v is None else f"{v:.1%}"
+                print(f"train step {name}, batch {bsz}, crop 192: CUDA graph "
+                      f"{r['graph']:.3f} ms/step = "
+                      f"{bsz / r['graph'] * 1e3:.1f} samples/s, eager "
+                      f"{r['eager']:.3f} ms/step = "
+                      f"{bsz / r['eager'] * 1e3:.1f} samples/s (CUDA events, "
+                      f"2 x 20 steps in turns); busy (torch.profiler, 10 "
+                      f"steps) graph {pct(r['busy graph'])}, eager "
+                      f"{pct(r['busy eager'])}; convolutions "
+                      f"{pct(r.get('conv'))} of the eager step's kernel "
+                      f"time; peak memory {r['peak'] / 2**20:.1f} MiB above "
+                      f"the {base / 2**20:.1f} MiB held before; bound "
+                      f"{r['bound'][0]:.3f} ms at 67 TFLOP/s f32, "
+                      f"{r['bound'][1]:.4f} ms at 989 TFLOP/s bf16 "
+                      f"({flops / 1e9:.2f} GFLOP; {card})")
+            del states
+        print(f"training phase: epilogue launches {got['epi']} (counted runs: "
+              f"the CLI's validation)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return got
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -807,6 +1160,10 @@ def main() -> int:
                    epi_x, 3, 242, h, dict(edge=xl_chunk[1], to_u8=True)),
         "xla f32": ("f32 edge tiles, crop 7, (24, 256, 256, 27) -> f32 "
                     "726^2", epi_x, 3, 242, h, dict(edge=main_e)),
+        "xla f32 val": ("training's validation chunk: f32 edge tiles, crop "
+                        "7, (4, 256, 256, 27) -> f32 726^2",
+                        epi_x[:4].contiguous(), 3, 242, h,
+                        dict(edge=main_e[:4].contiguous())),
         "fused": ("fused engine: expand (24, 242, 242, 27) + base of f32 "
                   "edge tiles -> f32 726^2", main_expand, 3, 242, 0,
                   dict(edge=main_e)),
@@ -879,7 +1236,7 @@ def main() -> int:
 
     hr_mpix = lr.shape[0] * 3 * lr.shape[1] * 3 / 1e6
     launches = {"f32": 0, "bf16": 0, "d2s": 0, "epi": 0, "conv": 0}
-    epi_launches = {"xla u8": 0, "fused": 0, "packed": 0}
+    epi_launches = {"xla u8": 0, "fused": 0, "packed": 0, "xla f32": 0}
     stage_shape = {name: (fs.hwio.shape[0], fs.hwio.shape[2],
                           fs.hwio.shape[3])
                    for name, (_, fs, _) in forms.items()}
@@ -1003,6 +1360,14 @@ def main() -> int:
     for key, v in serve["shapes"].items():
         shape_launches[key] = shape_launches.get(key, 0) + v
 
+    # 4c. Training: the CLI, train_folder, the card's step against the CPU
+    # and float64, validation through the epilogue kernel, step times;
+    # each counted run with the counts set to 0 just before it.
+    trained = training_phase(cli, tiling, shuffle, params, imageio, rng,
+                             card, zero_counts, counts)
+    epi_launches["xla f32"] += trained["epi"]
+    launches["epi"] += trained["epi"]
+
     # 5. Times at the main path's shapes, in turns.  The trunk's work on a
     # 24 x 256^2 chunk: stage extents 252, 248, 246, 244, 242 (the halo
     # shrinks by each conv's radius); K and N per stage.  Its bound: the
@@ -1075,7 +1440,7 @@ def main() -> int:
           f"{bounds['d2s'][0]:.3f} ms (bytes; "
           f"{bounds['d2s'][0] / times['d2s'][0]:.1%} reached) per call "
           f"(CUDA events, 2 x 10 calls each; {card})")
-    for form in ("xla u8", "fused", "packed"):
+    for form in ("xla u8", "fused", "packed", "xla f32 val"):
         name, x, f, tile, off, kw = epi_cases[form]
         times[form] = time_in_turns(
             lambda: shuffle.epilogue_reference(x, f, tile, off, **kw),
@@ -1275,11 +1640,13 @@ def main() -> int:
             trunk_bound[torch.bfloat16]),
         row("depth_to_space u8", shuffle_src, shuffle_tpu, launches["d2s"],
             d2s_err, times["d2s"], bounds["d2s"], times["d2s"][2])]
-    for form, label in (("xla u8", "epilogue xla u8"),
-                        ("fused", "epilogue fused f32"),
-                        ("packed", "epilogue packed u8")):
+    for form, timed, label in (("xla u8", "xla u8", "epilogue xla u8"),
+                               ("fused", "fused", "epilogue fused f32"),
+                               ("packed", "packed", "epilogue packed u8"),
+                               ("xla f32", "xla f32 val",
+                                "epilogue xla f32")):
         rows.append(row(label, shuffle_src, shuffle_tpu, epi_launches[form],
-                        epi_err, times[form], bounds[form]))
+                        epi_err, times[timed], bounds[timed]))
     for name, (k_ms, p_ms, l_ms, b_ms, b_by) in stage_rows.items():
         k = stage_shape[name][0]
         rows.append(row(

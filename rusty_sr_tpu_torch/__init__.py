@@ -10,9 +10,12 @@ kernel `csrc/conv_stage.cu` and its output through the epilogue in
 `csrc/shuffle.cu`) and fused (the trunk as the hand-written kernel
 `csrc/trunk.cu`, its output through the depth-to-space kernel) — in the
 exact (f32) and fast (bf16) tiers; the bilinear and downsample modes;
-and serving — `upscale_batch` and the CLI's folder and watch modes, with
+serving — `upscale_batch` and the CLI's folder and watch modes, with
 tiles batched across images, a native host codec and pinned,
-stream-ordered copies.
+stream-ordered copies; and training — `train_folder` and the CLI's
+``train`` (float32 merged and flat trunks, ``--amp``, ``--trunk
+packed``), with the crop feed, `.rsr` and torch checkpoints, and
+validation through the epilogue kernel.
 """
 
 __version__ = "0.1.0"
@@ -30,6 +33,7 @@ from rusty_sr_tpu_torch.params import (  # noqa: F401
 )
 from rusty_sr_tpu_torch.api import (  # noqa: F401
     downscale,
+    train_folder,
     upscale,
     upscale_batch,
     upscale_bilinear,

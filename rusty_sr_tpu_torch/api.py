@@ -5,6 +5,8 @@
 >>> hr = rusty_sr_tpu_torch.upscale(img_u8, weights="anime", fast=True)
 >>> hrs = rusty_sr_tpu_torch.upscale_batch([a_u8, b_u8], weights="anime")
 >>> lr = rusty_sr_tpu_torch.downscale(img)                  # gamma-correct
+>>> tree = rusty_sr_tpu_torch.train_folder("photos/", steps=1000,
+...                                        param_file="mine.rsr")
 """
 
 from __future__ import annotations
@@ -111,3 +113,97 @@ def downscale(image: np.ndarray, factor: int = 3, *,
     h, w, _ = img.shape
     return tiled_simple(img[: h - h % factor, : w - w % factor], factor,
                         mode="downsample", device=device)
+
+
+def train_folder(folder: str, *, steps: Optional[int] = None,
+                 factor: int = 3, recurse: bool = False,
+                 start: Union[str, dict, None] = None,
+                 param_file: Optional[str] = None,
+                 linear_loss: bool = False, loss: str = "mse",
+                 val_folder: Optional[str] = None,
+                 val_max: Optional[int] = None,
+                 metrics_file: Optional[str] = None,
+                 ckpt_dir: Optional[str] = None,
+                 resume_from: Optional[str] = None,
+                 amp: bool = False, precision: str = "highest",
+                 trunk: str = "merged", batch_size: Optional[int] = None,
+                 crop: Optional[int] = None, remat: bool = False,
+                 steps_per_dispatch: Optional[int] = None,
+                 data_workers: Optional[int] = None,
+                 checkpoint_every: Optional[int] = None,
+                 val_every: Optional[int] = None,
+                 seed: int = 0, device="cuda") -> dict:
+    """Train on an image folder with the reference's protocol; returns the
+    final parameters (a numpy tree).
+
+    ``start``: a `.rsr` path or a tree to start from (default: a fresh
+    init from ``seed``).  ``param_file``: the `.rsr` written at the
+    checkpoint cadence and at the end.  ``ckpt_dir``/``resume_from``:
+    resumable checkpoints (parameters, Adam state, step).  ``amp``: bf16
+    convolution operands with float32 sums, parameters and Adam state.
+    ``trunk``: 'merged' (the default), 'flat' or 'packed' (the bf16
+    space-to-depth trunk; needs an even LR crop).  ``batch_size`` (4) and
+    ``crop`` (192, a multiple of the factor) size the batches;
+    ``remat`` recomputes the forward in the backward pass;
+    ``steps_per_dispatch`` batches are uploaded at once (10, clamped to
+    the cadences); ``data_workers`` sizes the crop pool;
+    ``checkpoint_every`` and ``val_every`` are the cadences in steps (100
+    each, as the CLI's ``--ckpt_every`` and ``--val_every``).  ``device``:
+    'cuda' trains on the card, 'cpu' on the CPU.  ``precision='high'``
+    is not ported."""
+    from rusty_sr_tpu_torch.train.data import CropPipeline, list_images
+    from rusty_sr_tpu_torch.train.loop import TrainConfig, train_loop
+    from rusty_sr_tpu_torch.utils.imageio import load_image_u8
+
+    if trunk not in ("merged", "flat", "packed"):
+        raise ValueError(f"trunk must be merged/flat/packed, got {trunk!r}")
+    if precision != "highest":
+        raise ValueError(f"precision={precision!r} is not ported yet to the "
+                         "PyTorch package")
+    cfg = TrainConfig(factor=factor, linear_loss=linear_loss, loss_kind=loss,
+                      amp=amp, trunk=trunk, remat=remat)
+    if batch_size is not None:
+        if batch_size < 1:
+            raise ValueError("batch_size must be >= 1")
+        cfg.batch_size = batch_size
+    for name, v in (("steps_per_dispatch", steps_per_dispatch),
+                    ("checkpoint_every", checkpoint_every),
+                    ("val_every", val_every)):
+        if v is not None:
+            if v < 1:
+                raise ValueError(f"{name} must be >= 1")
+            setattr(cfg, name, v)
+    if crop is not None:
+        if crop < factor or crop % factor:
+            raise ValueError(f"crop must be a positive multiple of the "
+                             f"factor {factor} (got {crop})")
+        cfg.crop = crop
+    if trunk == "packed" and (cfg.crop // factor) % 2:
+        raise ValueError(f"trunk='packed' needs an even LR crop "
+                         f"(crop {cfg.crop} / factor {factor} is odd)")
+    start_tree = start
+    if isinstance(start, str):
+        start_tree = params_lib.load_rsr_file(start, factor)
+    val_images = None
+    if val_folder:
+        files = list_images(val_folder, recurse)
+        if val_max is not None:
+            files = files[:val_max]
+        val_images = [load_image_u8(f).astype(np.float32) / 255.0
+                      for f in files]
+    buf = CropPipeline(folder, recurse=recurse, crop=(cfg.crop, cfg.crop),
+                       batch_size=cfg.batch_size, seed=seed,
+                       workers=data_workers, out_dtype=np.uint8)
+
+    def batches():
+        while True:
+            yield buf.next_batch()
+
+    try:
+        return train_loop(cfg, batches(), start_params=start_tree,
+                          param_file=param_file, val_images=val_images,
+                          max_steps=steps, metrics_file=metrics_file,
+                          native_ckpt_dir=ckpt_dir, resume_from=resume_from,
+                          seed=seed, device=device)
+    finally:
+        buf.close()

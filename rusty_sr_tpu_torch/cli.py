@@ -5,10 +5,11 @@ far are both engines — xla (the default: u8 tiles in, u8 HR tiles out)
 and fused — in the exact (f32) tier and, with ``--fast``, the bf16 tier;
 the ``-p bilinear`` and ``-d`` modes; a folder as the input (every image
 in it upscaled into the output folder, tiles batched across images on
-the xla engine); and ``watch``, the resident serving mode.  Each runs the
-kernels on the card (``--platform gpu``, the default) or their plain
-PyTorch versions on the CPU (``--platform cpu``).  ``--mesh`` and
-``train`` are not ported yet and exit with code 2.
+the xla engine); ``watch``, the resident serving mode; and ``train``,
+which fits new parameters to an image folder.  Each runs on the card
+(``--platform gpu``, the default) or on the CPU (``--platform cpu``: the
+kernels' plain PyTorch versions).  ``--mesh``, multi-host training and
+``train --precision high`` are not ported yet and exit with code 2.
 """
 
 from __future__ import annotations
@@ -106,10 +107,108 @@ def build_watch_parser() -> argparse.ArgumentParser:
     return w
 
 
+def build_train_parser() -> argparse.ArgumentParser:
+    t = argparse.ArgumentParser(
+        prog="rusty-sr-torch train",
+        description="Train a new set of neural parameters on your own dataset")
+    t.add_argument("PARAMETER_FILE",
+                   help="learned parameters are (over)written to this .rsr "
+                        "file")
+    t.add_argument("TRAINING_FOLDER",
+                   help="images from this folder are used for training")
+    t.add_argument("-l", "--linearLoss", action="store_true",
+                   dest="linear_loss",
+                   help="apply MSE loss to linearised RGB output rather "
+                        "than sRGB values")
+    t.add_argument("-r", "--recurse", action="store_true",
+                   help="recurse into subfolders looking for files")
+    t.add_argument("-s", "--start", metavar="FILE",
+                   help="start training from parameters in this .rsr file")
+    t.add_argument("-v", "--val_folder", metavar="DIR",
+                   help="images from this folder are used to evaluate "
+                        "training progress")
+    t.add_argument("-m", "--val_max", type=int, metavar="N",
+                   help="upper limit on number of images per validation pass")
+    t.add_argument("-f", "--factor", type=int, default=3)
+    t.add_argument("--loss", choices=["mse", "l1"], default="mse",
+                   help="data loss (the reference uses MSE)")
+    t.add_argument("--max_steps", type=int, default=None,
+                   help="optional hard step cap (for smoke runs)")
+    t.add_argument("--metrics", metavar="FILE", default=None,
+                   help="append JSONL training metrics to FILE")
+    t.add_argument("--ckpt_dir", metavar="DIR", default=None,
+                   help="also write resumable checkpoints (parameters, "
+                        "optimizer state, step) to DIR")
+    t.add_argument("--resume", metavar="DIR", nargs="?", const="",
+                   default=None,
+                   help="resume from the latest checkpoint in DIR (default: "
+                        "--ckpt_dir), restoring parameters, optimizer state "
+                        "and the step counter — unlike -s/--start, which "
+                        "loads bare parameters only")
+    t.add_argument("--mesh", metavar="SPEC", default=None,
+                   help="parallel training over several devices (not "
+                        "ported yet)")
+    t.add_argument("--amp", action="store_true",
+                   help="mixed-precision training: bf16 convolution "
+                        "operands with f32 sums, f32 parameters and "
+                        "optimizer state")
+    t.add_argument("--trunk", choices=["merged", "flat", "packed"],
+                   default="merged",
+                   help="the step's forward form: 'merged' (wide convA/B/C, "
+                        "the default), 'flat' (the reference's topology), "
+                        "'packed' (the bf16 2x2 space-to-depth trunk)")
+    t.add_argument("--precision", choices=["highest", "high"],
+                   default="highest",
+                   help="f32 convolution precision: 'highest' (exact); "
+                        "'high' is not ported yet")
+    t.add_argument("--crop", type=int, default=None, metavar="N",
+                   help="HR training crop side (default 192). Must be "
+                        "divisible by the factor, and give an even LR crop "
+                        "for --trunk packed")
+    t.add_argument("--remat", action="store_true",
+                   help="recompute the forward in the backward pass: less "
+                        "device memory for more operations")
+    t.add_argument("--batch", type=int, default=None,
+                   help="batch size (the reference's default is 4)")
+    t.add_argument("--ckpt_every", type=int, default=None, metavar="N",
+                   help="checkpoint cadence in steps (default 100; step 1 "
+                        "always checkpoints)")
+    t.add_argument("--val_every", type=int, default=None, metavar="N",
+                   help="validation cadence in steps (default 100; "
+                        "independent of --ckpt_every)")
+    t.add_argument("--steps_per_dispatch", type=int, default=None,
+                   metavar="N",
+                   help="batches uploaded to the device at once (default "
+                        "10; clamped to divide the checkpoint and "
+                        "validation cadences)")
+    t.add_argument("--data_workers", type=int, default=None, metavar="N",
+                   help="host decode/crop worker threads (default: CPU "
+                        "count, capped at 16); the batches are the same "
+                        "for any N")
+    t.add_argument("--coordinator", metavar="HOST:PORT", default=None,
+                   help="multi-host training (not ported yet)")
+    t.add_argument("--num_processes", type=int, default=None,
+                   help="multi-host training (not ported yet)")
+    t.add_argument("--process_id", type=int, default=None,
+                   help="multi-host training (not ported yet)")
+    t.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
+                   help="'gpu' (default; needs CUDA) or 'cpu'")
+    t.add_argument("--trace", metavar="DIR", default=None,
+                   help="record a torch.profiler trace of the run to "
+                        "DIR/trace.json")
+    return t
+
+
 def _not_ported(args):
     """The first flag or mode the port cannot run yet, or None."""
     if args.mesh:
         return "--mesh"
+    if any(getattr(args, k, None) is not None
+           for k in ("coordinator", "num_processes", "process_id")):
+        return "multi-host training (--coordinator/--num_processes/" \
+            "--process_id)"
+    if getattr(args, "precision", "highest") != "highest":
+        return f"--precision {args.precision}"
     return None
 
 
@@ -624,12 +723,131 @@ def run_watch(args) -> int:
             mf.close()
 
 
+def run_train(args) -> int:
+    """The ``train`` command: the reference's protocol on a folder, with
+    checkpoints to PARAMETER_FILE (and ``--ckpt_dir``)."""
+    from rusty_sr_tpu_torch import params as params_lib
+    from rusty_sr_tpu_torch.train.data import CropPipeline, list_images
+    from rusty_sr_tpu_torch.train.loop import TrainConfig, train_loop
+    from rusty_sr_tpu_torch.utils.imageio import DECODE_ERRORS, load_image_u8
+
+    if args.val_max is not None and not args.val_folder:
+        print("error: --val_max requires --val_folder", file=sys.stderr)
+        return 2
+    resume_from = args.resume
+    if resume_from == "":          # a bare --resume: use --ckpt_dir
+        if not args.ckpt_dir:
+            print("error: --resume without a DIR requires --ckpt_dir",
+                  file=sys.stderr)
+            return 2
+        resume_from = args.ckpt_dir
+    if resume_from is not None and args.start:
+        print("error: --resume conflicts with -s/--start (a native "
+              "checkpoint already contains the parameters)",
+              file=sys.stderr)
+        return 2
+    missing = _not_ported(args)
+    if missing:
+        print(f"error: {missing} {_NOT_PORTED}", file=sys.stderr)
+        return 2
+
+    cfg = TrainConfig(factor=args.factor, linear_loss=args.linear_loss,
+                      loss_kind=args.loss, amp=args.amp, trunk=args.trunk,
+                      remat=args.remat)
+    for flag, arg_v, attr in (("--ckpt_every", args.ckpt_every,
+                               "checkpoint_every"),
+                              ("--val_every", args.val_every, "val_every"),
+                              ("--steps_per_dispatch",
+                               args.steps_per_dispatch,
+                               "steps_per_dispatch")):
+        if arg_v is not None:
+            if arg_v < 1:
+                print(f"error: {flag} must be >= 1 (got {arg_v})",
+                      file=sys.stderr)
+                return 2
+            setattr(cfg, attr, arg_v)
+    if args.batch is not None:
+        if args.batch < 1:
+            print(f"error: --batch must be >= 1 (got {args.batch})",
+                  file=sys.stderr)
+            return 2
+        cfg.batch_size = args.batch
+    if args.crop is not None:
+        if args.crop < cfg.factor or args.crop % cfg.factor:
+            print(f"error: --crop must be a positive multiple of the "
+                  f"factor {cfg.factor} (got {args.crop})", file=sys.stderr)
+            return 2
+        if cfg.trunk == "packed" and (args.crop // cfg.factor) % 2:
+            print(f"error: --trunk packed needs an even LR crop "
+                  f"(--crop {args.crop} / factor {cfg.factor} = "
+                  f"{args.crop // cfg.factor}, odd)", file=sys.stderr)
+            return 2
+        cfg.crop = args.crop
+    device = device_for(args.platform)
+
+    start = None
+    if args.start:
+        try:
+            start = params_lib.load_rsr_file(args.start, cfg.factor)
+        except OSError as e:
+            print(f"Error opening start parameter file: {e}",
+                  file=sys.stderr)
+            return 1
+        except ValueError as e:
+            print(f"error: {e}. Ensure the start parameters were trained "
+                  "with the same factor.", file=sys.stderr)
+            return 1
+    val_images = None
+    if args.val_folder:
+        files = list_images(args.val_folder, args.recurse)
+        if args.val_max is not None:
+            files = files[: args.val_max]
+        try:
+            val_images = [load_image_u8(f).astype(np.float32) / 255.0
+                          for f in files]
+        except DECODE_ERRORS as e:
+            print(f"error: validation image: {e}", file=sys.stderr)
+            return 1
+    try:
+        buf = CropPipeline(args.TRAINING_FOLDER, recurse=args.recurse,
+                           crop=(cfg.crop, cfg.crop),
+                           batch_size=cfg.batch_size, seed=0,
+                           workers=args.data_workers, out_dtype=np.uint8)
+    except (ValueError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+    print("Beginning Training")
+
+    def batches():
+        while True:
+            yield buf.next_batch()
+
+    try:
+        train_loop(cfg, batches(), start_params=start,
+                   param_file=args.PARAMETER_FILE, val_images=val_images,
+                   validate=bool(args.val_folder), max_steps=args.max_steps,
+                   metrics_file=args.metrics, native_ckpt_dir=args.ckpt_dir,
+                   resume_from=resume_from, device=device)
+    except OSError as e:
+        print(f"Could not make parameter file: {e}", file=sys.stderr)
+        return 1
+    except RuntimeError as e:
+        # e.g. every training image unreadable, or a bad checkpoint
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    finally:
+        buf.close()
+    print("Done")
+    return 0
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "train":
-        print(f"error: the train command {_NOT_PORTED}", file=sys.stderr)
-        return 2
-    if argv and argv[0] == "watch":
+        args = build_train_parser().parse_args(argv[1:])
+        runner = run_train
+    elif argv and argv[0] == "watch":
         args = build_watch_parser().parse_args(argv[1:])
         runner = run_watch
     else:

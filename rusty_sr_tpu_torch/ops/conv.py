@@ -3,8 +3,16 @@
 Precision: a float32 convolution on the card goes through cuDNN, which
 by default may run it in TF32 (about three decimal digits) — the Hopper
 form of the TPU's DEFAULT-precision trap described in
-`rusty_sr_tpu/ops/conv.py`.  Every convolution here runs inside
+`rusty_sr_tpu/ops/conv.py`.  A float32 convolution here runs inside
 `exact_f32`, which turns TF32 off for cuDNN and for cuBLAS matmuls.
+Autograd runs the backward convolutions later, outside any context the
+forward entered, so a training step enters `exact_f32` around its
+backward pass too (`train.loop`).
+
+bfloat16 operands mean what they mean in the JAX package: one rounding
+of each operand, exact products, float32 accumulation and a float32
+result (``preferred_element_type=f32``).  The convolution then runs on
+the operands' float32 values, whose products TF32 represents exactly.
 """
 
 from __future__ import annotations
@@ -49,10 +57,66 @@ def bf16_split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi_f.to(torch.bfloat16), (v - hi_f).to(torch.bfloat16)
 
 
+@contextlib.contextmanager
+def tf32_on_bf16():
+    """cuDNN may use TF32: the convolutions inside take bfloat16-valued
+    float32 operands, which TF32 holds exactly (8 of its 11 significant
+    bits), so the forward products stay exact and the sums float32."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=True):
+        yield
+
+
 def conv2d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (N,H,W,Cin); w: (kh,kw,Cin,Cout) HWIO. Stride 1, zero-pad Same."""
+    """x: (N,H,W,Cin); w: (kh,kw,Cin,Cout) HWIO. Stride 1, zero-pad Same.
+
+    float32 (or float64) operands: an exact convolution in their type
+    (TF32 off).  bfloat16 operands: float32 out, the JAX package's bf16
+    convolution — the convolution of their float32 values, under
+    `tf32_on_bf16`; the gradients with respect to the bfloat16 operands
+    come back rounded to bfloat16, as JAX's do."""
     kh, kw = w.shape[0], w.shape[1]
-    with exact_f32():
-        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                     padding=(kh // 2, kw // 2))
+    x, w = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    if x.dtype != w.dtype:
+        raise ValueError(f"conv2d_same takes operands of one type, not "
+                         f"{x.dtype} and {w.dtype}")
+    if x.dtype == torch.bfloat16:
+        with tf32_on_bf16():
+            y = F.conv2d(x.float(), w.float(), padding=(kh // 2, kw // 2))
+    else:
+        with exact_f32():
+            y = F.conv2d(x, w, padding=(kh // 2, kw // 2))
     return y.permute(0, 2, 3, 1)
+
+
+class _SplitPrecise(torch.autograd.Function):
+    """The three-term split convolution; its gradient is that of the
+    plain bfloat16-cast convolution (the JAX op's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        hi, lo = bf16_split(h)
+        w_hi, w_lo = bf16_split(w)
+        return conv2d_same(torch.cat([hi, hi, lo], dim=-1),
+                           torch.cat([w_hi, w_lo, w_hi], dim=2))
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        with torch.enable_grad():
+            h_ = h.detach().requires_grad_(True)
+            w_ = w.detach().requires_grad_(True)
+            y = conv2d_same(h_.to(torch.bfloat16), w_.to(torch.bfloat16))
+            return torch.autograd.grad(y, (h_, w_), g)
+
+
+def conv_split_precise(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Same-conv of float32 ``h`` and HWIO ``w`` through the three-term
+    bf16 split of both (hi*w_hi + hi*w_lo + lo*w_hi as one widened
+    convolution), float32 out: `rusty_sr_tpu/ops/conv.py::
+    conv_split_precise`.  Differentiable: the backward pass is the
+    gradient of ``conv2d_same(h.bf16, w.bf16)``, as the JAX op's custom
+    VJP is (the split refines the forward value only)."""
+    return _SplitPrecise.apply(h, w)

@@ -26,6 +26,7 @@ of its `tiled_simple`, the bilinear and downsample modes:
 
 from __future__ import annotations
 
+import functools
 import threading
 from collections import deque
 from typing import Callable, Optional
@@ -108,19 +109,31 @@ def _s2d_maps_k(k: int):
     return uu, vv, ok
 
 
-def _s2d_conv_weights(w: np.ndarray, blocks) -> np.ndarray:
+def s2d_conv_weights(w: torch.Tensor, blocks) -> torch.Tensor:
     """(k, k, ci, co) -> (3, 3, 4ci, 4co) space-to-depth packed weights
     with block-major output channels: for sub-block b (widths ``blocks``,
     summing to co) the packed channel is 4*offset_b + ff*width_b + c_b,
     so every merged-stage slice is one channel range in packed space and
-    per-channel vectors tile as np.tile(p, 4)."""
-    w = np.asarray(w, np.float32)
+    per-channel vectors tile as ``v.repeat(4)``.  A gather and a {0,1}
+    mask, so it is differentiable: the gradient of each packed tap flows
+    back to the tap it was taken from (the training trunk
+    `models.sr_net.sr_apply_packed` packs inside the step)."""
     k, _, ci, co = w.shape
     if sum(blocks) != co:
         raise ValueError(f"blocks {list(blocks)} do not sum to {co}")
+    uu, vv, ok, perm = _s2d_index(k, tuple(blocks), w.device)
+    wg = w[uu, vv] * ok.to(w.dtype)[..., None, None]
+    wflat = wg.permute(0, 1, 2, 4, 3, 5).reshape(3, 3, 4 * ci, 4 * co)
+    return wflat[..., perm].contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _s2d_index(k: int, blocks: tuple, device: torch.device):
+    """`s2d_conv_weights`'s gather indices, tap mask and output-channel
+    permutation, made once per device: a training step captured in a CUDA
+    graph may not copy from the host."""
     uu, vv, ok = _s2d_maps_k(k)
-    wg = w[uu, vv] * ok[..., None, None]          # (3,3,4g,4f,ci,co)
-    wflat = wg.transpose(0, 1, 2, 4, 3, 5).reshape(3, 3, 4 * ci, 4 * co)
+    co = sum(blocks)
     perm = np.empty(4 * co, np.int64)
     off = 0
     for wb in blocks:
@@ -128,7 +141,14 @@ def _s2d_conv_weights(w: np.ndarray, blocks) -> np.ndarray:
             for cb in range(wb):
                 perm[4 * off + ff * wb + cb] = ff * co + off + cb
         off += wb
-    return np.ascontiguousarray(wflat[..., perm])
+    return tuple(torch.from_numpy(a).to(device) for a in
+                 (uu.astype(np.int64), vv.astype(np.int64), ok, perm))
+
+
+def _s2d_conv_weights(w: np.ndarray, blocks) -> np.ndarray:
+    """`s2d_conv_weights` on numpy arrays (float32)."""
+    return s2d_conv_weights(torch.from_numpy(np.asarray(w, np.float32)),
+                            blocks).numpy()
 
 
 def _conv0_s2d_weights(w0: np.ndarray) -> np.ndarray:

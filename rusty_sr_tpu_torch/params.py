@@ -8,7 +8,8 @@ The same wire format and flat ordering as `rusty_sr_tpu/params.py`:
 
 Conv weight blocks are row-major ``(C_out, k_h, k_w, C_in)`` in the file
 and HWIO in the tree, so the tree is interchangeable with the JAX
-package's.  Everything here is numpy; `to_torch` moves a tree onto a
+package's.  Everything here is numpy; `save_rsr_file` writes a tree
+back to a `.rsr` file, and `to_torch` moves a tree onto a
 device.  The builtin weight blobs are read by path from the JAX
 package's ``weights/`` folder (reading a file imports nothing).
 """
@@ -166,6 +167,15 @@ def load_builtin(name: str, factor: int = 3) -> Pytree:
         raise ValueError(f"unknown builtin weights {name!r}; "
                          f"choose from {BUILTIN_WEIGHTS}")
     return load_rsr_file(os.path.join(_builtin_dir(), f"{name}.rsr"), factor)
+
+
+def save_rsr_file(path: str, tree, factor: int) -> None:
+    """Write a tree in the `.rsr` framing (the reference's training
+    checkpoint; byte for byte `rusty_sr_tpu/params.py::save_rsr_file`).
+    The width is read from the tree (32 for the reference's net)."""
+    width = int(np.shape(tree["f_bias"])[0])
+    with open(path, "wb") as f:
+        f.write(encode_rsr(pytree_to_flat(tree, factor, width)))
 
 
 def to_torch(tree, device) -> dict:

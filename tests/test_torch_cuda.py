@@ -23,8 +23,12 @@ Tolerances (chip_smoke.py holds the main path's shapes to the same):
   H100, kernel and cuDNN alike reach tens of ulps on values that cancel
   to near zero), with at most 1e-3 of the values differing;
 - the fast tiers end to end: 4 u8 codes, the JAX suite's bound for the
-  same bf16 products summed in another order; the exact tier 1 code.
+  same bf16 products summed in another order; the exact tier 1 code;
+- a float32 training step: each gradient leaf within 1e-4 of its largest
+  magnitude of a float64 step on the CPU (TF32 would be ~1e-3).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -564,3 +568,107 @@ def test_cuda_batch_callbacks_and_simple_modes(cuda_device):
             want = tiling.tiled_simple(img[:129, :96], 3, mode=mode, tile=30,
                                        chunk=4, device="cpu")
             assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def step_grads(tree, u8, device, dtype, cfg):
+    """The loss and each gradient leaf (float64 numpy) of one step of the
+    training loop's `make_train_step` (on the card, the CUDA graph) on
+    ``device`` in ``dtype``; a float64 step takes the batch as float64 of
+    its float32 scaling."""
+    from rusty_sr_tpu_torch.train import loop as TL
+    p = {k: torch.tensor(v, dtype=dtype, device=device, requires_grad=True)
+         for k, v in tree.items()}
+    x = torch.from_numpy(u8).to(device)
+    if dtype == torch.float64:
+        x = (x.float() * (1.0 / 255.0)).double()
+    step, _ = TL.make_train_step(cfg, p)
+    loss, _ = step(x)
+    return float(loss), {k: v.grad.double().cpu().numpy()
+                         for k, v in p.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(amp=True),
+                                dict(trunk="packed", remat=True)],
+                         ids=["f32", "amp", "packed-remat"])
+def test_cuda_graphed_step_matches_eager(cuda_device, kw):
+    """The CUDA graph of the step against the eager `train_step` over 12
+    steps on the same batches, parameters within 1e-4 (chip_smoke's
+    card-against-CPU bound) and losses within rtol 1e-3 (the bf16 tiers
+    flip a few roundings once the parameters differ by an ulp), with a
+    change of batch shape half-way (the graph is captured again and the
+    run goes on from where it was)."""
+    from rusty_sr_tpu_torch.train import loop as TL
+    tree = init_params(4, 3)
+    r = np.random.default_rng(5)
+    xs = [torch.from_numpy(r.integers(0, 256, (2 if i < 6 else 3, 48, 48,
+                                               3), dtype=np.uint8))
+          .to(cuda_device) for i in range(12)]
+    cfg = TL.TrainConfig(crop=48, **kw)
+    runs = []
+    for graphed in (False, True):
+        p = {k: torch.tensor(v, device=cuda_device, requires_grad=True)
+             for k, v in tree.items()}
+        if graphed:
+            step, opt = TL.make_train_step(cfg, p)
+            assert isinstance(step, TL.GraphedStep)
+        else:
+            opt = TL.make_optimizer(cfg, p)
+
+            def step(hr, p=p, opt=opt):
+                return TL.train_step(p, opt, hr, cfg)
+        losses = [float(step(x)[0]) for x in xs]
+        runs.append((losses, {k: v.detach().cpu().numpy()
+                              for k, v in p.items()}))
+    (l_e, p_e), (l_g, p_g) = runs
+    np.testing.assert_allclose(l_g, l_e, rtol=1e-3)
+    for k in tree:
+        np.testing.assert_allclose(p_g[k], p_e[k], rtol=0, atol=1e-4,
+                                   err_msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_step_within_f32_noise_of_float64(cuda_device):
+    """The TF32 witness: autograd runs the backward convolutions outside
+    the forward's `exact_f32`, so the step enters it around both.  Every
+    gradient leaf of the card's float32 step is within 1e-4 of its
+    largest magnitude of a float64 step on the CPU (TF32 would put it
+    near 1e-3), and its loss within rtol 1e-5."""
+    from rusty_sr_tpu_torch.train import loop as TL
+    tree = init_params(3, 3)
+    u8 = np.random.default_rng(0).integers(0, 256, (4, 96, 96, 3),
+                                           dtype=np.uint8)
+    cfg = TL.TrainConfig(crop=96)
+    loss, got = step_grads(tree, u8, cuda_device, torch.float32, cfg)
+    ref_loss, ref = step_grads(tree, u8, "cpu", torch.float64, cfg)
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for k, g in got.items():
+        scale = float(np.abs(ref[k]).max())
+        assert float(np.abs(g - ref[k]).max()) <= 1e-4 * scale, k
+
+
+@pytest.mark.cuda
+def test_cuda_train_folder_runs_and_validates_on_the_card(cuda_device,
+                                                          tmp_path):
+    from rusty_sr_tpu_torch.api import train_folder
+    from rusty_sr_tpu_torch.utils.imageio import save_image_u8
+    r = np.random.default_rng(2)
+    for i in range(3):
+        save_image_u8(str(tmp_path / f"i{i}.png"),
+                      r.integers(0, 256, (60, 75, 3), dtype=np.uint8))
+    before = shuffle.EPILOGUE_LAUNCHES
+    mf = str(tmp_path / "m.jsonl")
+    for kw in (dict(), dict(amp=True), dict(trunk="packed", remat=True)):
+        tree = train_folder(str(tmp_path), steps=4, crop=48, batch_size=2,
+                            val_folder=str(tmp_path), val_max=1,
+                            checkpoint_every=2, val_every=2,
+                            metrics_file=mf,
+                            param_file=str(tmp_path / "o.rsr"),
+                            device=cuda_device, **kw)
+        assert all(np.isfinite(v).all() for v in tree.values())
+        assert os.path.getsize(tmp_path / "o.rsr") == 1_043_676
+    assert shuffle.EPILOGUE_LAUNCHES > before   # validation on the card
+    import json
+    recs = [json.loads(ln) for ln in open(mf)]
+    assert [r_["step"] for r_ in recs] == [1, 2, 4] * 3
+    assert all(np.isfinite(r_["val_psnr"]) for r_ in recs)

@@ -298,7 +298,7 @@ def test_folder_unreadable_only_and_bomb(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--mesh", "2", "DIR", "OUT"], ["watch", "--mesh", "2", "DIR", "OUT"],
-    ["train", "w.rsr", "DIR"],
+    ["train", "--mesh", "2", "w.rsr", "DIR"],
     ["--platform", "cpu", "--engine", "fused", "-p", "anime", "DIR", "OUT"]],
     ids=["folder-mesh", "watch-mesh", "train", "folder-fused"])
 def test_refused_paths_exit_2(argv, tmp_path, capsys):

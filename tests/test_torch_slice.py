@@ -236,11 +236,13 @@ def test_cli_custom_weights_equal_builtin(lr_png, tmp_path):
     assert (tmp_path / "p.png").read_bytes() == (tmp_path / "c.png").read_bytes()
 
 
-# A folder and watch run since the serving slice; with --mesh they still
-# exit 2 (tests/test_torch_serving.py tests them).
+# A folder, watch and train run since the serving and training slices;
+# with --mesh they still exit 2 (tests/test_torch_serving.py and
+# tests/test_torch_train_loop.py test them).
 @pytest.mark.parametrize("argv", [
     ["--mesh", "2", "IN", "OUT"], ["--mesh", "2", "DIR", "OUT"],
-    ["train", "w.rsr", "DIR"], ["watch", "--mesh", "2", "DIR", "OUT"]],
+    ["train", "--mesh", "2", "w.rsr", "DIR"],
+    ["watch", "--mesh", "2", "DIR", "OUT"]],
     ids=["mesh", "folder", "train", "watch"])
 def test_cli_unported_paths_exit_2(argv, tmp_path, capsys):
     argv = [str(tmp_path) if a == "DIR" else a for a in argv]
