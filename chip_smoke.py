@@ -74,6 +74,21 @@ Phases, each fatal on failure:
    and the convolutions' share of the eager step's kernel time
    (torch.profiler), and the peak memory, for f32, amp and packed at
    batch 4 and 32;
+4d. the mesh's data axis and data-parallel training on the one card,
+   each counted run with the counts set to 0 before it:
+   `tiled_sr_batch` on 4b's images over a mesh of two replicas on cuda:0
+   in the exact, packed and flat tiers (byte-identical to one device;
+   the epilogue and every conv stage of the tier ran); the CLI with
+   ``--mesh data=1`` for a single image, a ``--fast`` folder and ``watch
+   --once`` (byte-identical to the runs without it); ``train`` 10 steps
+   from anime over NCCL at world size 1 (``--coordinator
+   127.0.0.1:P --num_processes 1 --process_id 0``; the .rsr within 1e-6
+   of the run without it); two spawned processes on cuda:0 over gloo,
+   `train_folder` at batch 8 (4 a rank) for 10 steps (the ranks'
+   parameters bit-identical; step 1 within loss rel 1e-5 and parameters
+   1e-4 of one process's step on the global batch; rank 0's validation
+   launched the epilogue's f32 form); the ms/step of each run, printed
+   as a wiring check, not scaling;
 5. time each kernel, its plain version and, where one exists, the one
    PyTorch call for the same function (cuDNN's bf16 conv for the conv
    stage) with CUDA events, in turns, beside its bound (the larger of
@@ -92,7 +107,8 @@ Phases, each fatal on failure:
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel (the conv stage once per stage of each fast tier) with
-its launches (summed over the CLI, serving and training paths above),
+its launches (summed over the CLI, serving, training and multi-device
+paths above),
 error, times and bound.
 Without a CUDA device, or outside the repository, it
 exits non-zero and prints no result.
@@ -265,7 +281,8 @@ def serving_phase(cli, tiling, imageio, native, anime, rng, card,
     """Folder mode, watch and `tiled_sr_batch` on a folder of synthetic
     PNGs: four 1024x768, four ragged sizes, a name collision (a.png and
     a.PNG) and a truncated file.  Returns the launches of the counted
-    runs: {"launches": {...}, "epi": {form: n}, "shapes": {key: n}}."""
+    runs: {"launches": {...}, "epi": {form: n}, "shapes": {key: n}} and the
+    readable images, largest first: {"images": [...]}."""
     import io
     import torch
     from rusty_sr_tpu_torch.train.data import list_images
@@ -438,7 +455,9 @@ def serving_phase(cli, tiling, imageio, native, anime, rng, card,
 
         # tiled_sr_batch on the folder's images three times over: 276
         # tiles, 12 chunks, so the ring of 9 pinned slots wraps at depth 8.
-        imgs = [imageio.load_image_u8(f) for f in readable] * 3
+        got["images"] = sorted((imageio.load_image_u8(f) for f in readable),
+                               key=lambda im: -im.size)
+        imgs = got["images"] * 3
         hr3 = 3 * hr_mpix
         for cd, tier in ((None, "exact"), (bf, "fast")):
             runs = {}
@@ -839,6 +858,261 @@ def training_phase(cli, tiling, shuffle, params, imageio, rng, card,
             del states
         print(f"training phase: epilogue launches {got['epi']} (counted runs: "
               f"the CLI's validation)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return got
+
+
+def _dp_rank(rank: int, port: int, src: str, tmp: str) -> None:
+    """One rank of phase 4d's two-process run (a spawned process): gloo on
+    cuda:0, `api.train_folder` at batch 8 (4 a rank) for 10 steps from
+    the anime weights, validation at step 1 on rank 0; writes its final
+    parameters, its epilogue launches and its wall to rank<r>.npz."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    import torch.distributed as dist
+    from rusty_sr_tpu_torch import api, params
+    from rusty_sr_tpu_torch.ops.cuda import shuffle
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        shuffle.EPILOGUE_LAUNCHES = 0
+        t0 = time.time()
+        tree = api.train_folder(
+            src, steps=10, start=os.path.join(params._builtin_dir(),
+                                              "anime.rsr"),
+            batch_size=8, crop=192, val_folder=src, val_max=2,
+            ckpt_dir=os.path.join(tmp, "dp_ck"), checkpoint_every=10,
+            metrics_file=os.path.join(tmp, "dp.jsonl"), device="cuda:0",
+            group=dist.group.WORLD)
+        torch.cuda.synchronize()
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"),
+                 epi=shuffle.EPILOGUE_LAUNCHES, wall=time.time() - t0,
+                 **{"p_" + k: v for k, v in tree.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_device_phase(cli, tiling, imageio, params, anime, images, rng,
+                       card, zero_counts, counts, stage_shape):
+    """Phase 4d, the mesh's data axis and data-parallel training on the one
+    card: `tiled_sr_batch` over two replicas on cuda:0, the CLI with
+    ``--mesh data=1``, ``train`` over NCCL at world size 1 and two gloo
+    ranks of `train_folder` on cuda:0.  Returns the launches of the
+    counted runs: {"launches": {...}, "epi": {form: n}, "shapes": {...}}."""
+    import contextlib
+    import io
+    import multiprocessing
+    import socket
+    import torch
+    from rusty_sr_tpu_torch.parallel.mesh import make_mesh
+    from rusty_sr_tpu_torch.train import checkpoint as ck
+    from rusty_sr_tpu_torch.train import loop as TL
+    from rusty_sr_tpu_torch.train.data import CropPipeline
+
+    got = {"launches": {"f32": 0, "bf16": 0, "d2s": 0, "epi": 0, "conv": 0},
+           "epi": {"xla u8": 0, "packed": 0, "xla f32": 0}, "shapes": {}}
+
+    def add(n, form):
+        for k in got["launches"]:
+            got["launches"][k] += n[k]
+        got["epi"][form] += n["epi"]
+        for key, v in n["shapes"].items():
+            got["shapes"][key] = got["shapes"].get(key, 0) + v
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    def quiet(argv, what):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        if rc != 0:
+            fail(f"{what} exited {rc}:\n{buf.getvalue()}")
+        return buf.getvalue()
+
+    # 1. tiled_sr_batch over two replicas on the card, each tier.
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    hr = sum(im.shape[0] * im.shape[1] for im in images) * 9 / 1e6
+    for tier, cd, tile, form, stages in (
+            ("exact", None, 242, "xla u8", None),
+            ("fast", torch.bfloat16, 242, "packed", "packed"),
+            ("flat", torch.bfloat16, 241, "xla u8", "flat")):
+        t0 = time.time()
+        single = tiling.tiled_sr_batch(anime, images, 3, tile=tile,
+                                       compute_dtype=cd)
+        wall1 = time.time() - t0
+        zero_counts()
+        t0 = time.time()
+        sharded = tiling.tiled_sr_batch(anime, images, 3, tile=tile,
+                                        compute_dtype=cd, mesh=mesh)
+        n = counts()
+        wall2 = time.time() - t0
+        same = all(a.tobytes() == b.tobytes() for a, b in zip(single,
+                                                             sharded))
+        print(f"tiled_sr_batch {tier} over a mesh of two replicas on "
+              f"cuda:0, {len(images)} images: "
+              f"{'byte-identical to' if same else 'DIFFERENT from'} one "
+              f"device; launches: epilogue {n['epi']}, conv stage "
+              f"{n['conv']}; {wall2:.4f} s against {wall1:.4f} s on one "
+              f"device = {hr / wall2:.1f} HR MPix/s (host clock, after the "
+              f"single run: a wiring check, not scaling; {card})")
+        if not same:
+            fail(f"tiled_sr_batch {tier} over two replicas differs")
+        if n["epi"] < 1:
+            fail(f"tiled_sr_batch {tier} over two replicas launched no "
+                 "epilogue")
+        for stage, key in stage_shape.items():
+            if stage.split()[0] == stages and n["shapes"].get(key, 0) < 1:
+                fail(f"tiled_sr_batch {tier} over two replicas launched no "
+                     f"{stage} stage")
+        add(n, form)
+    del single, sharded
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        def out(name):
+            return os.path.join(tmp, name)
+
+        # 2. The CLI with --mesh data=1: a single image, a folder, watch.
+        src = out("in")
+        os.makedirs(src)
+        for i, im in enumerate(images[:1] + images[-3:]):
+            imageio.save_image_u8(os.path.join(src, f"im{i}.png"), im)
+        one = os.path.join(src, "im0.png")
+        for what, argv, form in (
+                ("single image", ["-p", "anime", one], "xla u8"),
+                ("folder --fast", ["-p", "anime", "--fast", src], "packed"),
+                ("watch --once", ["watch", "--once", "-p", "anime", src],
+                 "xla u8")):
+            tag = what.split()[0]
+            dst = out(f"{tag}_plain" + (".png" if tag == "single" else ""))
+            quiet([*argv, dst], f"CLI {what}")
+            zero_counts()
+            mesh_dst = out(f"{tag}_mesh" + (".png" if tag == "single"
+                                            else ""))
+            rest = argv[1:] if argv[0] == "watch" else argv
+            quiet(([argv[0]] if argv[0] == "watch" else [])
+                  + ["--mesh", "data=1", *rest, mesh_dst],
+                  f"CLI {what} --mesh data=1")
+            n = counts()
+            if tag == "single":
+                same = imageio.load_image_u8(dst).tobytes() == \
+                    imageio.load_image_u8(mesh_dst).tobytes()
+            else:
+                names = sorted(os.listdir(dst))
+                same = names == sorted(os.listdir(mesh_dst)) and all(
+                    imageio.load_image_u8(os.path.join(dst, f)).tobytes()
+                    == imageio.load_image_u8(os.path.join(mesh_dst, f))
+                    .tobytes() for f in names)
+            print(f"CLI {what} --mesh data=1: "
+                  f"{'byte-identical to' if same else 'DIFFERENT from'} the "
+                  f"run without it (launches: epilogue {n['epi']}, conv "
+                  f"stage {n['conv']})")
+            if not same or n["epi"] < 1:
+                fail(f"CLI {what} --mesh data=1 disagrees or launched no "
+                     "epilogue")
+            add(n, form)
+
+        # 3. train over NCCL at world size 1 against the same run without
+        # a process group: 10 steps from the anime weights.
+        ti = out("ti")
+        os.makedirs(ti)
+        for i in range(4):
+            imageio.save_image_u8(os.path.join(ti, f"t{i}.png"),
+                                  train_image(rng, 384, 512))
+        anime_rsr = os.path.join(params._builtin_dir(), "anime.rsr")
+        trees, rates = {}, {}
+        for name, extra in (("one process", []),
+                            ("NCCL, world 1", [
+                                "--coordinator", f"127.0.0.1:{free_port()}",
+                                "--num_processes", "1", "--process_id",
+                                "0"])):
+            rsr, mjs = out(f"{len(extra)}.rsr"), out(f"{len(extra)}.jsonl")
+            zero_counts()
+            quiet(["train", rsr, ti, "-s", anime_rsr, "--max_steps", "10",
+                   "--ckpt_every", "9", "--metrics", mjs, *extra],
+                  f"train CLI, {name}")
+            add(counts(), "xla f32")
+            trees[name] = params.load_rsr_file(rsr, 3)
+            with open(mjs) as f:
+                recs = {r["step"]: r for r in map(json.loads, f)}
+            rates[name] = (recs[9]["wall_s"] - recs[1]["wall_s"]) / 8 * 1e3
+        err = max(float(np.abs(trees["one process"][k]
+                               - trees["NCCL, world 1"][k]).max())
+                  for k in trees["one process"])
+        print(f"train CLI over NCCL at world size 1, 10 steps of batch 4: "
+              f".rsr within {err:.3g} of the run without a process group "
+              f"(tol 1e-6); {rates['NCCL, world 1']:.3f} ms/step against "
+              f"{rates['one process']:.3f} (steps 2-9, host clock from "
+              f"the metrics: a wiring check, not scaling; {card})")
+        if not err <= 1e-6:
+            fail(f"train over NCCL at world size 1 differs by {err}")
+
+        # 4. Two gloo ranks on cuda:0, batch 8 (4 a rank), 10 steps.
+        ctx = multiprocessing.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=_dp_rank, args=(r, port, ti, tmp))
+                 for r in range(2)]
+        t0 = time.time()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=300)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        wall = time.time() - t0
+        if any(p.exitcode != 0 for p in procs):
+            fail(f"the two gloo ranks exited {[p.exitcode for p in procs]}")
+        r0, r1 = (np.load(out(f"rank{r}.npz")) for r in range(2))
+        names = [k for k in r0.files if k.startswith("p_")]
+        same = all(r0[k].tobytes() == r1[k].tobytes() for k in names)
+        with open(out("dp.jsonl")) as f:
+            recs = {r["step"]: r for r in map(json.loads, f)}
+        ms = (recs[10]["wall_s"] - recs[1]["wall_s"]) / 9 * 1e3
+        # Step 1 against one process's step on the global batch.
+        cfg = TL.TrainConfig(batch_size=8)
+        halves = []
+        for r in range(2):
+            pipe = CropPipeline(ti, crop=(192, 192), batch_size=4, seed=r,
+                                out_dtype=np.uint8, shard_across_hosts=True,
+                                process_index=r, process_count=2)
+            try:
+                halves.append(pipe.next_batch())
+            finally:
+                pipe.close()
+        start = params.load_rsr_file(anime_rsr, 3)
+        p1 = {k: torch.tensor(v, device="cuda", requires_grad=True)
+              for k, v in start.items()}
+        step, _ = TL.make_train_step(cfg, p1)
+        loss1, _ = step(torch.from_numpy(np.concatenate(halves)).cuda())
+        tree1, _, _ = ck.restore_native(os.path.join(tmp, "dp_ck",
+                                                     "step_00000001"))
+        p_err = max(float(np.abs(tree1[k] - p1[k].detach().cpu().numpy())
+                          .max()) for k in start)
+        l_rel = abs(recs[1]["loss"] - float(loss1)) / float(loss1)
+        print(f"two gloo ranks on cuda:0, train_folder batch 8 (4 a rank), "
+              f"10 steps: parameters of the ranks "
+              f"{'bit-identical' if same else 'DIFFERENT'}; step 1 against "
+              f"one process's step on the global batch: loss rel "
+              f"{l_rel:.3g} (tol 1e-5), parameters max abs {p_err:.3g} (tol "
+              f"1e-4); rank 0's validation launched the epilogue "
+              f"{int(r0['epi'])} times; {ms:.3f} ms/step (steps 2-10, host "
+              f"clock from the metrics; {wall:.1f} s wall with both "
+              f"processes' start: a wiring check, not scaling; {card})")
+        if not (same and l_rel <= 1e-5 and p_err <= 1e-4
+                and int(r0["epi"]) >= 1):
+            fail("the two gloo ranks disagree with each other or with one "
+                 "process, or validated without the epilogue kernel")
+        got["epi"]["xla f32"] += int(r0["epi"]) + int(r1["epi"])
+        got["launches"]["epi"] += int(r0["epi"]) + int(r1["epi"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return got
@@ -1367,6 +1641,18 @@ def main() -> int:
                              card, zero_counts, counts)
     epi_launches["xla f32"] += trained["epi"]
     launches["epi"] += trained["epi"]
+
+    # 4d. The mesh's data axis and data-parallel training on the one card;
+    # each counted run with the counts set to 0 just before it.
+    multi = multi_device_phase(cli, tiling, imageio, params, anime,
+                               serve["images"], rng, card, zero_counts,
+                               counts, stage_shape)
+    for k in launches:
+        launches[k] += multi["launches"][k]
+    for form, v in multi["epi"].items():
+        epi_launches[form] += v
+    for key, v in multi["shapes"].items():
+        shape_launches[key] = shape_launches.get(key, 0) + v
 
     # 5. Times at the main path's shapes, in turns.  The trunk's work on a
     # 24 x 256^2 chunk: stage extents 252, 248, 246, 244, 242 (the halo

@@ -12,10 +12,12 @@ kernel `csrc/conv_stage.cu` and its output through the epilogue in
 exact (f32) and fast (bf16) tiers; the bilinear and downsample modes;
 serving — `upscale_batch` and the CLI's folder and watch modes, with
 tiles batched across images, a native host codec and pinned,
-stream-ordered copies; and training — `train_folder` and the CLI's
+stream-ordered copies; training — `train_folder` and the CLI's
 ``train`` (float32 merged and flat trunks, ``--amp``, ``--trunk
 packed``), with the crop feed, `.rsr` and torch checkpoints, and
-validation through the epilogue kernel.
+validation through the epilogue kernel; and the data axis of the JAX
+package's mesh — tile serving split over several devices
+(`parallel.mesh`) and data-parallel training over `torch.distributed`.
 """
 
 __version__ = "0.1.0"

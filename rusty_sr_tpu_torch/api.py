@@ -81,8 +81,9 @@ def upscale_batch(images, weights: Union[str, dict] = "imagenet",
     ``i`` the moment image i is finished, while later tiles still
     compute, so that encoding overlaps the card; with
     ``release_outputs=True`` the returned list holds None for the images
-    delivered.  ``mesh`` is not ported yet and raises.  ``device`` as in
-    `upscale`.
+    delivered.  ``mesh`` (`parallel.mesh.make_mesh`) splits each chunk of
+    tiles over its devices in place of ``device``, with the same
+    outputs.  ``device`` as in `upscale`.
     """
     from rusty_sr_tpu_torch.parallel.tiling import tiled_sr_batch
     tree = _resolve_params(weights, factor)
@@ -132,7 +133,7 @@ def train_folder(folder: str, *, steps: Optional[int] = None,
                  data_workers: Optional[int] = None,
                  checkpoint_every: Optional[int] = None,
                  val_every: Optional[int] = None,
-                 seed: int = 0, device="cuda") -> dict:
+                 seed: int = 0, device="cuda", group=None) -> dict:
     """Train on an image folder with the reference's protocol; returns the
     final parameters (a numpy tree).
 
@@ -150,9 +151,17 @@ def train_folder(folder: str, *, steps: Optional[int] = None,
     ``checkpoint_every`` and ``val_every`` are the cadences in steps (100
     each, as the CLI's ``--ckpt_every`` and ``--val_every``).  ``device``:
     'cuda' trains on the card, 'cpu' on the CPU.  ``precision='high'``
-    is not ported."""
+    is not ported.
+
+    ``group``: an initialised `torch.distributed` process group to train
+    data-parallel over, this process being one rank on ``device``
+    (`train.loop.train_loop`): each rank reads its stripe of the folder
+    (`train.data.shard_files_for_host`), crops ``batch_size / world`` of
+    each batch from the seed ``seed + rank``, and rank 0 alone validates
+    and writes the files."""
     from rusty_sr_tpu_torch.train.data import CropPipeline, list_images
-    from rusty_sr_tpu_torch.train.loop import TrainConfig, train_loop
+    from rusty_sr_tpu_torch.train.loop import (TrainConfig, train_loop,
+                                               world_of)
     from rusty_sr_tpu_torch.utils.imageio import load_image_u8
 
     if trunk not in ("merged", "flat", "packed"):
@@ -184,16 +193,22 @@ def train_folder(folder: str, *, steps: Optional[int] = None,
     start_tree = start
     if isinstance(start, str):
         start_tree = params_lib.load_rsr_file(start, factor)
+    rank, world = world_of(group)
+    if cfg.batch_size % world:
+        raise ValueError(f"batch_size {cfg.batch_size} does not divide over "
+                         f"{world} processes")
     val_images = None
-    if val_folder:
+    if val_folder and rank == 0:
         files = list_images(val_folder, recurse)
         if val_max is not None:
             files = files[:val_max]
         val_images = [load_image_u8(f).astype(np.float32) / 255.0
                       for f in files]
     buf = CropPipeline(folder, recurse=recurse, crop=(cfg.crop, cfg.crop),
-                       batch_size=cfg.batch_size, seed=seed,
-                       workers=data_workers, out_dtype=np.uint8)
+                       batch_size=cfg.batch_size // world, seed=seed + rank,
+                       workers=data_workers, out_dtype=np.uint8,
+                       shard_across_hosts=world > 1, process_index=rank,
+                       process_count=world)
 
     def batches():
         while True:
@@ -204,6 +219,7 @@ def train_folder(folder: str, *, steps: Optional[int] = None,
                           param_file=param_file, val_images=val_images,
                           max_steps=steps, metrics_file=metrics_file,
                           native_ckpt_dir=ckpt_dir, resume_from=resume_from,
-                          seed=seed, device=device)
+                          validate=bool(val_folder), seed=seed,
+                          device=device, group=group)
     finally:
         buf.close()

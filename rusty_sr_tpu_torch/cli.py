@@ -8,8 +8,16 @@ in it upscaled into the output folder, tiles batched across images on
 the xla engine); ``watch``, the resident serving mode; and ``train``,
 which fits new parameters to an image folder.  Each runs on the card
 (``--platform gpu``, the default) or on the CPU (``--platform cpu``: the
-kernels' plain PyTorch versions).  ``--mesh``, multi-host training and
-``train --precision high`` are not ported yet and exit with code 2.
+kernels' plain PyTorch versions).
+
+``--mesh data=N`` (or ``N``) runs the data axis of the JAX package's
+mesh: upscale (xla engine), folder and ``watch`` split each chunk of
+tiles over N devices, and ``train`` trains data-parallel on N local
+processes, one per device, over `torch.distributed`.  ``train
+--coordinator HOST:PORT --num_processes N --process_id I`` makes this
+process rank I of N (NCCL on the card, gloo on the CPU).  The
+``spatial`` and ``model`` mesh axes and ``train --precision high`` are
+not ported yet and exit with code 2.
 """
 
 from __future__ import annotations
@@ -61,7 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "stages with u8 tiles in and out; 'fused', the "
                         "trunk as one CUDA kernel (single images only)")
     p.add_argument("--mesh", metavar="SPEC", default=None,
-                   help="shard tiles over several devices (not ported yet)")
+                   help="split each chunk of tiles over N devices: 'data=N' "
+                        "or just 'N' (xla engine; on --platform cpu, N "
+                        "replicas on the CPU)")
     p.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
                    help="'gpu' (default; needs CUDA) or 'cpu' (the "
                         "kernels' plain PyTorch versions)")
@@ -95,7 +105,8 @@ def build_watch_parser() -> argparse.ArgumentParser:
     w.add_argument("--once", action="store_true",
                    help="process the current folder contents and exit")
     w.add_argument("--mesh", metavar="SPEC", default=None,
-                   help="shard tiles over several devices (not ported yet)")
+                   help="split each chunk of tiles over N devices: 'data=N' "
+                        "or just 'N'")
     w.add_argument("--metrics", metavar="FILE", default=None,
                    help="append one JSONL record per processed group "
                         "(images, failures, HR MPix, latency, MPix/s)")
@@ -146,8 +157,11 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "and the step counter — unlike -s/--start, which "
                         "loads bare parameters only")
     t.add_argument("--mesh", metavar="SPEC", default=None,
-                   help="parallel training over several devices (not "
-                        "ported yet)")
+                   help="data-parallel training: 'data=N' or 'N'. Without "
+                        "--coordinator, starts N local processes (ranks "
+                        "0..N-1 over 127.0.0.1, one device each: cuda:I "
+                        "mod the device count, or the CPU); with it, N "
+                        "must equal --num_processes")
     t.add_argument("--amp", action="store_true",
                    help="mixed-precision training: bf16 convolution "
                         "operands with f32 sums, f32 parameters and "
@@ -186,11 +200,16 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "count, capped at 16); the batches are the same "
                         "for any N")
     t.add_argument("--coordinator", metavar="HOST:PORT", default=None,
-                   help="multi-host training (not ported yet)")
+                   help="multi-process training: the address of rank 0's "
+                        "rendezvous (torch.distributed, tcp://HOST:PORT)")
     t.add_argument("--num_processes", type=int, default=None,
-                   help="multi-host training (not ported yet)")
+                   help="multi-process training: the number of processes, "
+                        "one device each")
     t.add_argument("--process_id", type=int, default=None,
-                   help="multi-host training (not ported yet)")
+                   help="multi-process training: this process's rank "
+                        "(0-based; rank 0 prints, validates and writes the "
+                        "checkpoints; device cuda:I mod the device count, "
+                        "NCCL; gloo on --platform cpu)")
     t.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
                    help="'gpu' (default; needs CUDA) or 'cpu'")
     t.add_argument("--trace", metavar="DIR", default=None,
@@ -199,17 +218,66 @@ def build_train_parser() -> argparse.ArgumentParser:
     return t
 
 
-def _not_ported(args):
-    """The first flag or mode the port cannot run yet, or None."""
+def _parse_mesh_spec(spec_str: str) -> dict:
+    """'data=N[,spatial=M][,model=K]' or 'N' -> {'data': N, 'spatial': M,
+    'model': K} (raises ValueError)."""
+    spec = dict(kv.split("=", 1) for kv in spec_str.split(",")) \
+        if "=" in spec_str else {"data": spec_str}
+    if "data" not in spec:
+        raise ValueError("mesh spec needs a 'data' axis")
+    axes = {k: int(spec.pop(k, 1)) for k in ("data", "spatial", "model")}
+    if spec:
+        raise ValueError(f"unknown mesh axes {sorted(spec)}")
+    if min(axes.values()) < 1:
+        raise ValueError("every mesh axis must be >= 1")
+    return axes
+
+
+def _parse_mesh(spec_str: str, device):
+    """A --mesh spec -> `parallel.mesh.Mesh` of the ``device``'s kind: N
+    entries of the CPU, or N of the visible CUDA devices (raises
+    ValueError)."""
+    import torch
+    from rusty_sr_tpu_torch.parallel.mesh import make_mesh
+    axes = _parse_mesh_spec(spec_str)
+    device = torch.device(device)
+    devices = [device] * axes["data"] if device.type == "cpu" else None
+    return make_mesh(axes["data"], axes["spatial"], axes["model"],
+                     devices=devices)
+
+
+def _refused(args) -> Optional[int]:
+    """Exit code 2, after saying why, for a malformed ``--mesh`` or a
+    flag the port cannot run yet (the mesh's spatial and model axes,
+    ``--precision high``); None otherwise."""
     if args.mesh:
-        return "--mesh"
-    if any(getattr(args, k, None) is not None
-           for k in ("coordinator", "num_processes", "process_id")):
-        return "multi-host training (--coordinator/--num_processes/" \
-            "--process_id)"
+        try:
+            axes = _parse_mesh_spec(args.mesh)
+        except ValueError as e:
+            print(f"error: bad --mesh {args.mesh!r}: {e}", file=sys.stderr)
+            return 2
+        other = [f"{k}={v}" for k, v in axes.items() if k != "data" and v > 1]
+        if other:
+            print(f"error: --mesh {','.join(other)} {_NOT_PORTED}; the "
+                  "port runs the data axis only", file=sys.stderr)
+            return 2
     if getattr(args, "precision", "highest") != "highest":
-        return f"--precision {args.precision}"
+        print(f"error: --precision {args.precision} {_NOT_PORTED}",
+              file=sys.stderr)
+        return 2
     return None
+
+
+def _mesh_arg(args, device):
+    """(mesh or None, None) for ``--mesh``, or (None, 2) after printing
+    why the devices cannot hold it."""
+    if not args.mesh:
+        return None, None
+    try:
+        return _parse_mesh(args.mesh, device), None
+    except ValueError as e:
+        print(f"error: bad --mesh {args.mesh!r}: {e}", file=sys.stderr)
+        return None, 2
 
 
 def _fast_tier_tip(args) -> None:
@@ -297,13 +365,26 @@ def run_upscale(args) -> int:
         print("error: --downsample conflicts with --parameters/--custom",
               file=sys.stderr)
         return 2
-    missing = _not_ported(args)
-    if missing:
-        print(f"error: {missing} {_NOT_PORTED}", file=sys.stderr)
+    refused = _refused(args)
+    if refused is not None:
+        return refused
+    simple = args.downsample or args.parameters == "bilinear"
+    if args.mesh and simple:
+        # A silent single-device run would hand a user who asked for N
+        # devices one.
+        print("error: --mesh is not supported for the bilinear/downsample "
+              "paths", file=sys.stderr)
+        return 2
+    if args.mesh and args.engine != "xla":
+        print(f"error: --mesh supports the 'xla' engine only (got "
+              f"{args.engine!r})", file=sys.stderr)
         return 2
     device = device_for(args.platform)
+    mesh, rc = _mesh_arg(args, device)
+    if rc is not None:
+        return rc
     if os.path.isdir(args.INPUT_FILE):
-        return _run_upscale_folder(args, device)
+        return _run_upscale_folder(args, device, mesh)
     try:
         check_codec(args.INPUT_FILE)
         check_codec(args.OUTPUT_FILE)
@@ -315,7 +396,7 @@ def run_upscale(args) -> int:
     except DECODE_ERRORS as e:
         print(f"Error opening input image file: {e}", file=sys.stderr)
         return 1
-    if args.downsample or args.parameters == "bilinear":
+    if simple:
         return _run_simple(args, img_u8, device)
 
     _fast_tier_tip(args)
@@ -332,9 +413,15 @@ def run_upscale(args) -> int:
     # pixels; the fused engine runs on f32 in [0, 1].
     img = img_u8 if args.engine == "xla" else \
         img_u8.astype(np.float32) / 255.0
-    out = tiled_sr(tree, img, args.factor, tile=args.tile, chunk=args.chunk,
-                   engine=args.engine, device=device,
-                   compute_dtype=torch.bfloat16 if args.fast else None)
+    cd = torch.bfloat16 if args.fast else None
+    if mesh is not None:
+        from rusty_sr_tpu_torch.parallel.mesh import tiled_sr_sharded
+        out = tiled_sr_sharded(tree, img, mesh, args.factor, tile=args.tile,
+                               chunk=args.chunk, compute_dtype=cd)
+    else:
+        out = tiled_sr(tree, img, args.factor, tile=args.tile,
+                       chunk=args.chunk, engine=args.engine, device=device,
+                       compute_dtype=cd)
     print(" Writing file...", end="", flush=True)
     try:
         if out.dtype == np.uint8:
@@ -518,12 +605,13 @@ def _decoded_groups(files, on_error=None):
         stop.set()
 
 
-def _upscale_group(args, tree, images, paths, writer, device) -> None:
+def _upscale_group(args, tree, images, paths, writer, device,
+                   mesh=None) -> None:
     """Upscale one decoded group of u8 ``images`` and hand each result to
     ``writer`` under its path in ``paths``: the neural modes in one
-    `tiled_sr_batch` call, which submits each image the moment its last
-    tile is scattered; the non-neural ones (``tree`` None) through
-    `tiled_simple`, image by image."""
+    `tiled_sr_batch` call (over ``mesh`` when given), which submits each
+    image the moment its last tile is scattered; the non-neural ones
+    (``tree`` None) through `tiled_simple`, image by image."""
     import torch
     from rusty_sr_tpu_torch.parallel.tiling import tiled_sr_batch
 
@@ -532,13 +620,13 @@ def _upscale_group(args, tree, images, paths, writer, device) -> None:
             writer.submit(path, _simple(args, img, device))
         return
     tiled_sr_batch(tree, images, args.factor, tile=args.tile,
-                   chunk=args.chunk, device=device,
+                   chunk=args.chunk, device=device, mesh=mesh,
                    compute_dtype=torch.bfloat16 if args.fast else None,
                    on_image_done=lambda j, out: writer.submit(paths[j], out),
                    release_outputs=True)
 
 
-def _run_upscale_folder(args, device) -> int:
+def _run_upscale_folder(args, device, mesh=None) -> int:
     """Folder mode: every image in INPUT_FILE upscaled into the folder
     OUTPUT_FILE as ``stem.png``.
 
@@ -546,9 +634,10 @@ def _run_upscale_folder(args, device) -> int:
     bounded groups one group ahead; `tiled_sr_batch` keeps up to
     ``_MAX_INFLIGHT`` chunks of tiles, which span images, on the card;
     and each image is encoded on a write-behind pool the moment its last
-    tile is scattered.  The non-neural modes loop `tiled_simple` over the
-    images.  A failed write is reported and the run goes on; it then
-    exits 1, as it does when no image in the folder is readable."""
+    tile is scattered; ``mesh`` splits each chunk over its devices.  The
+    non-neural modes loop `tiled_simple` over the images.  A failed write
+    is reported and the run goes on; it then exits 1, as it does when no
+    image in the folder is readable."""
     from rusty_sr_tpu_torch.train.data import list_images
     from rusty_sr_tpu_torch.utils.imageio import codec
 
@@ -579,13 +668,16 @@ def _run_upscale_folder(args, device) -> int:
     verb = ("Downsampling" if args.downsample else
             "Upscaling (bilinear)" if simple else "Upscaling")
     print(f"{verb} {len(files)} images" + ("" if simple else
-          " (tiles batched across images)") + "...", end="", flush=True)
+          " (tiles batched across images"
+          + (f", sharded over {mesh.shape['data']} devices" if mesh else "")
+          + ")") + "...", end="", flush=True)
     writer = _AsyncWriter()
     n_done = 0
     try:
         for group in _decoded_groups(files):
             _upscale_group(args, tree, [im for _, im in group],
-                           [out_paths[i] for i, _ in group], writer, device)
+                           [out_paths[i] for i, _ in group], writer, device,
+                           mesh)
             n_done += len(group)
     finally:
         fails = writer.finish()
@@ -643,10 +735,9 @@ def run_watch(args) -> int:
     if args.custom and args.parameters:
         print("error: --custom conflicts with --parameters", file=sys.stderr)
         return 2
-    missing = _not_ported(args)
-    if missing:
-        print(f"error: {missing} {_NOT_PORTED}", file=sys.stderr)
-        return 2
+    refused = _refused(args)
+    if refused is not None:
+        return refused
     tree = _load_weights(args)
     if isinstance(tree, int):
         return tree
@@ -654,6 +745,9 @@ def run_watch(args) -> int:
         print(f"error: {args.INPUT_DIR!r} is not a folder", file=sys.stderr)
         return 1
     device = device_for(args.platform)
+    mesh, rc = _mesh_arg(args, device)
+    if rc is not None:
+        return rc
     os.makedirs(args.OUTPUT_DIR, exist_ok=True)
     _fast_tier_tip(args)
     mf = open(args.metrics, "a") if args.metrics else None
@@ -685,7 +779,7 @@ def run_watch(args) -> int:
                 try:
                     _upscale_group(args, tree, imgs,
                                    [os.path.join(args.OUTPUT_DIR, n)
-                                    for n in names], writer, device)
+                                    for n in names], writer, device, mesh)
                 finally:
                     # A failed write must not end the resident watcher.
                     failed = dict(writer.finish())
@@ -725,11 +819,10 @@ def run_watch(args) -> int:
 
 def run_train(args) -> int:
     """The ``train`` command: the reference's protocol on a folder, with
-    checkpoints to PARAMETER_FILE (and ``--ckpt_dir``)."""
-    from rusty_sr_tpu_torch import params as params_lib
-    from rusty_sr_tpu_torch.train.data import CropPipeline, list_images
-    from rusty_sr_tpu_torch.train.loop import TrainConfig, train_loop
-    from rusty_sr_tpu_torch.utils.imageio import DECODE_ERRORS, load_image_u8
+    checkpoints to PARAMETER_FILE (and ``--ckpt_dir``), on one device,
+    or data-parallel over processes (`_train_local_ranks` for ``--mesh
+    data=N``; this process one rank with ``--coordinator``)."""
+    from rusty_sr_tpu_torch.train.loop import TrainConfig
 
     if args.val_max is not None and not args.val_folder:
         print("error: --val_max requires --val_folder", file=sys.stderr)
@@ -746,10 +839,26 @@ def run_train(args) -> int:
               "checkpoint already contains the parameters)",
               file=sys.stderr)
         return 2
-    missing = _not_ported(args)
-    if missing:
-        print(f"error: {missing} {_NOT_PORTED}", file=sys.stderr)
+    refused = _refused(args)
+    if refused is not None:
+        return refused
+    dist_flags = (args.coordinator, args.num_processes, args.process_id)
+    multi = any(v is not None for v in dist_flags)
+    if multi and any(v is None for v in dist_flags):
+        print("error: multi-process training needs all of --coordinator, "
+              "--num_processes and --process_id", file=sys.stderr)
         return 2
+    if multi and not 0 <= args.process_id < args.num_processes:
+        print(f"error: --process_id {args.process_id} is not in [0, "
+              f"{args.num_processes})", file=sys.stderr)
+        return 2
+    n_data = _parse_mesh_spec(args.mesh)["data"] if args.mesh else 1
+    if multi and args.mesh and n_data != args.num_processes:
+        print(f"error: --mesh data={n_data} must equal --num_processes "
+              f"{args.num_processes} (one device a process)",
+              file=sys.stderr)
+        return 2
+    world = args.num_processes if multi else n_data
 
     cfg = TrainConfig(factor=args.factor, linear_loss=args.linear_loss,
                       loss_kind=args.loss, amp=args.amp, trunk=args.trunk,
@@ -783,7 +892,86 @@ def run_train(args) -> int:
                   f"{args.crop // cfg.factor}, odd)", file=sys.stderr)
             return 2
         cfg.crop = args.crop
+    if cfg.batch_size % world:
+        print(f"error: batch size {cfg.batch_size} does not divide over "
+              f"{world} processes (use --batch)", file=sys.stderr)
+        return 2
     device = device_for(args.platform)
+    if world > 1 and not multi:
+        _, rc = _mesh_arg(args, device)   # more ranks than devices
+        return rc if rc is not None else _train_local_ranks(args, world)
+    group = None
+    if multi:
+        import torch
+        import torch.distributed as dist
+        if device.type == "cuda":
+            device = torch.device("cuda", args.process_id
+                                  % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method=f"tcp://{args.coordinator}",
+            world_size=args.num_processes, rank=args.process_id)
+        group = dist.group.WORLD
+    try:
+        return _train(args, cfg, resume_from, device, group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+
+
+def _train_local_ranks(args, world: int) -> int:
+    """``train --mesh data=N`` without the multi-process flags: N spawned
+    processes, ranks 0..N-1 of a group over 127.0.0.1, each running this
+    command's `train` on its own device.  Returns the first failing
+    rank's exit code (the others are then stopped), or 0."""
+    import multiprocessing
+    import multiprocessing.connection
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = []
+    for rank in range(world):
+        rank_args = argparse.Namespace(**vars(args))
+        rank_args.mesh = None
+        rank_args.coordinator = f"127.0.0.1:{port}"
+        rank_args.num_processes, rank_args.process_id = world, rank
+        procs.append(ctx.Process(target=_train_rank, args=(rank_args,)))
+    for p in procs:
+        p.start()
+    try:
+        live = list(procs)
+        while live:
+            multiprocessing.connection.wait([p.sentinel for p in live])
+            live = [p for p in live if p.exitcode is None]
+            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if bad:
+                return bad[0] if bad[0] > 0 else 1
+        return 0
+    finally:
+        for p in procs:
+            if p.exitcode is None:
+                p.terminate()
+            p.join()
+
+
+def _train_rank(args) -> None:
+    """One rank of `_train_local_ranks` (in a spawned process)."""
+    sys.exit(run_train(args))
+
+
+def _train(args, cfg, resume_from, device, group) -> int:
+    """`run_train` once its flags are checked: ``device`` is this
+    process's, ``group`` the initialised process group or None."""
+    from rusty_sr_tpu_torch import params as params_lib
+    from rusty_sr_tpu_torch.train.data import CropPipeline, list_images
+    from rusty_sr_tpu_torch.train.loop import train_loop, world_of
+    from rusty_sr_tpu_torch.utils.imageio import DECODE_ERRORS, load_image_u8
+
+    rank, world = world_of(group)
 
     start = None
     if args.start:
@@ -798,7 +986,7 @@ def run_train(args) -> int:
                   "with the same factor.", file=sys.stderr)
             return 1
     val_images = None
-    if args.val_folder:
+    if args.val_folder and rank == 0:   # rank 0 alone validates
         files = list_images(args.val_folder, args.recurse)
         if args.val_max is not None:
             files = files[: args.val_max]
@@ -809,15 +997,23 @@ def run_train(args) -> int:
             print(f"error: validation image: {e}", file=sys.stderr)
             return 1
     try:
+        # Each rank reads its stripe of the folder and crops its share
+        # of every batch from the seed of its rank, as the JAX package
+        # seeds each process.
         buf = CropPipeline(args.TRAINING_FOLDER, recurse=args.recurse,
                            crop=(cfg.crop, cfg.crop),
-                           batch_size=cfg.batch_size, seed=0,
-                           workers=args.data_workers, out_dtype=np.uint8)
+                           batch_size=cfg.batch_size // world, seed=rank,
+                           workers=args.data_workers, out_dtype=np.uint8,
+                           shard_across_hosts=world > 1, process_index=rank,
+                           process_count=world)
     except (ValueError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-
-    print("Beginning Training")
+    if world > 1:
+        print(f"multi-process: process {rank}/{world}, {len(buf.files)} "
+              "training files in this process's stripe", flush=True)
+    if rank == 0:
+        print("Beginning Training")
 
     def batches():
         while True:
@@ -828,7 +1024,7 @@ def run_train(args) -> int:
                    param_file=args.PARAMETER_FILE, val_images=val_images,
                    validate=bool(args.val_folder), max_steps=args.max_steps,
                    metrics_file=args.metrics, native_ckpt_dir=args.ckpt_dir,
-                   resume_from=resume_from, device=device)
+                   resume_from=resume_from, device=device, group=group)
     except OSError as e:
         print(f"Could not make parameter file: {e}", file=sys.stderr)
         return 1
@@ -838,7 +1034,8 @@ def run_train(args) -> int:
         return 1
     finally:
         buf.close()
-    print("Done")
+    if rank == 0:
+        print("Done")
     return 0
 
 

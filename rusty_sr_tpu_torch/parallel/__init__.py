@@ -1,1 +1,1 @@
-"""Overlap-tile inference."""
+"""Overlap-tile inference, and the data axis of a device mesh."""

@@ -4,8 +4,9 @@ The contract of `rusty_sr_tpu/parallel/tiling.py::tiled_sr` with its two
 engines — "xla" (the default: the merged-conv trunk as separate conv
 stages) and "fused" (the trunk as one kernel) — in the exact (f32) and
 fast (bf16) tiers; of its `tiled_sr_batch`, the xla engine over a list
-of images with chunks that span images (the folder and watch modes); and
-of its `tiled_simple`, the bilinear and downsample modes:
+of images with chunks that span images (the folder and watch modes),
+optionally split over the devices of a mesh's data axis; and of its
+`tiled_simple`, the bilinear and downsample modes:
 
 - The image is cut into ``tile``-sided tiles, each with a HALO-px ring
   (the trunk's receptive-field radius, 7 LR px), gathered on the host
@@ -411,12 +412,13 @@ _NOT_PORTED = "is not ported yet to the PyTorch package"
 
 # --- The chunk pipeline shared by every tile entry point ---
 
-# Pinned host slots: one ring per device, a list of `_Slot`s for one
-# (input specs, output spec), replaced when a call needs another shape,
-# so that the pinned memory kept is one ring's.  A ring is taken out of
-# the dict while a call uses it, so that two concurrent calls never share
-# one.
-_RINGS: dict = {}          # device -> (specs, [_Slot, ...])
+# Pinned host slots: one ring per lane, a (device, place in the mesh)
+# pair, so that two replicas on one card keep apart.  A ring is a list of
+# `_Slot`s for one (input specs, output spec), replaced when a call needs
+# another shape, so that the pinned memory kept is one ring a lane.  A
+# ring is taken out of the dict while a call uses it, so that two
+# concurrent calls never share one.
+_RINGS: dict = {}          # (device, lane) -> (specs, [_Slot, ...])
 _RINGS_LOCK = threading.Lock()
 
 
@@ -436,26 +438,36 @@ class _Slot:
         self.fetched = torch.cuda.Event()
 
 
-def _run_chunks(device: torch.device, n_tiles: int, chunk: int, in_specs,
-                out_spec, gather, run, scatter) -> None:
-    """Tiles [0, n_tiles) through ``run`` in chunks of ``chunk`` tiles
-    (the last one padded with zero tiles, so every chunk has one shape),
-    at most ``_MAX_INFLIGHT`` chunks queued on the device before the
-    oldest is fetched.
+def _run_chunks(devices, n_tiles: int, chunk: int, in_specs, out_spec,
+                gather, runs, scatter) -> None:
+    """Tiles [0, n_tiles) through the tile kernel in chunks of ``chunk``
+    tiles (the last one padded with zero tiles, so every chunk has one
+    shape), chunk j on ``devices[j % n]`` through ``runs[j % n]`` (that
+    device's kernel, with its weights there), at most ``_MAX_INFLIGHT``
+    chunks a device queued before the oldest is fetched.
 
-    ``in_specs``: per input of ``run``, (chunk shape, dtype) or None for
+    With n devices (a mesh's data axis), chunks n*k .. n*k + n-1 are one
+    step split evenly over them, as the JAX package shards a chunk of
+    n * ``chunk`` tiles; the last step is padded with chunks of zero
+    tiles, whose results are dropped, so that every device gets one.
+    Results are scattered in global tile order.
+
+    ``in_specs``: per input of a run, (chunk shape, dtype) or None for
     an input it is given as None; ``out_spec`` the same for its result.
     ``gather(g0, g1, bufs)`` writes tiles [g0, g1) into the first g1-g0
     tiles of ``bufs`` (numpy arrays, None where the spec is None);
     ``scatter(g0, res)`` takes their results as a numpy array.
 
-    On CUDA each chunk is gathered straight into a pinned slot of the
-    device's ring of ``_MAX_INFLIGHT + 1`` (kept until a call needs
-    another shape), copied up on an upload stream and its result copied
-    down on a download stream, both ``non_blocking=True``, so the next
+    On CUDA each chunk is gathered straight into a pinned slot of its
+    lane's ring of ``_MAX_INFLIGHT + 1`` (kept until a call needs another
+    shape), copied up on the lane's upload stream and its result copied
+    down on its download stream, both ``non_blocking=True``, so the next
     chunk's upload and the previous one's download overlap this chunk's
     kernels; the slot's events order the host's reuse of it after those
     copies.  On the CPU every chunk gets fresh arrays and runs in order."""
+    n_dev = len(devices)
+    n_chunks = -(-n_tiles // chunk)
+    n_chunks += -n_chunks % n_dev
     pending: deque = deque()
 
     def drain_one():
@@ -463,64 +475,78 @@ def _run_chunks(device: torch.device, n_tiles: int, chunk: int, in_specs,
         if isinstance(res, _Slot):
             res.fetched.synchronize()
             res = res.out[:cnt]
-        scatter(g0, res[:cnt].numpy())
+        if cnt:
+            scatter(g0, res[:cnt].numpy())
 
-    if device.type != "cuda":
-        for g0 in range(0, n_tiles, chunk):
-            g1 = min(g0 + chunk, n_tiles)
+    def tile_range(j):
+        g0 = min(j * chunk, n_tiles)
+        return g0, min(g0 + chunk, n_tiles)
+
+    if devices[0].type != "cuda":
+        for j in range(n_chunks):
+            g0, g1 = tile_range(j)
             ins = [None if s is None else torch.zeros(s[0], dtype=s[1])
                    for s in in_specs]
-            gather(g0, g1, [None if t is None else t.numpy() for t in ins])
-            pending.append((g0, g1 - g0, run(*ins)))
-            if len(pending) >= _MAX_INFLIGHT:
+            if g1 > g0:
+                gather(g0, g1, [None if t is None else t.numpy()
+                                for t in ins])
+            pending.append((g0, g1 - g0, runs[j % n_dev](*ins)))
+            if len(pending) >= _MAX_INFLIGHT * n_dev:
                 drain_one()
         while pending:
             drain_one()
         return
 
     specs = (tuple(in_specs), out_spec)
+    lanes = list(enumerate(devices))
     with _RINGS_LOCK:
-        kept, ring = _RINGS.pop(device, (None, []))
-    if kept != specs:
-        ring = []
+        kept = [_RINGS.pop((d, i), (None, [])) for i, d in lanes]
+    rings = [ring if have == specs else [] for have, ring in kept]
     try:
         n_slots = _MAX_INFLIGHT + 1
-        compute = torch.cuda.current_stream(device)
-        up, down = torch.cuda.Stream(device), torch.cuda.Stream(device)
-        for k, g0 in enumerate(range(0, n_tiles, chunk)):
-            g1 = min(g0 + chunk, n_tiles)
+        streams = [(torch.cuda.current_stream(d), torch.cuda.Stream(d),
+                    torch.cuda.Stream(d)) for d in devices]
+        for j in range(n_chunks):
+            g0, g1 = tile_range(j)
+            lane, k = j % n_dev, j // n_dev
+            device, ring = devices[lane], rings[lane]
+            compute, up, down = streams[lane]
             if len(ring) <= k % n_slots:
                 ring.append(_Slot(in_specs, out_spec))
             slot = ring[k % n_slots]
             slot.uploaded.synchronize()
             slot.fetched.synchronize()
             bufs = [None if t is None else t.numpy() for t in slot.ins]
-            gather(g0, g1, bufs)
+            if g1 > g0:
+                gather(g0, g1, bufs)
             for b in bufs:
                 if b is not None:
                     b[g1 - g0:] = 0
-            with torch.cuda.stream(up):
-                ins = [None if t is None else t.to(device, non_blocking=True)
-                       for t in slot.ins]
-                slot.uploaded.record(up)
-            compute.wait_event(slot.uploaded)
-            for t in ins:
-                if t is not None:
-                    t.record_stream(compute)
-            res = run(*ins)
-            down.wait_stream(compute)
-            res.record_stream(down)
-            with torch.cuda.stream(down):
-                slot.out[:g1 - g0].copy_(res[:g1 - g0], non_blocking=True)
-                slot.fetched.record(down)
+            with torch.cuda.device(device):
+                with torch.cuda.stream(up):
+                    ins = [None if t is None else
+                           t.to(device, non_blocking=True) for t in slot.ins]
+                    slot.uploaded.record(up)
+                compute.wait_event(slot.uploaded)
+                for t in ins:
+                    if t is not None:
+                        t.record_stream(compute)
+                res = runs[lane](*ins)
+                down.wait_stream(compute)
+                res.record_stream(down)
+                with torch.cuda.stream(down):
+                    slot.out[:g1 - g0].copy_(res[:g1 - g0],
+                                             non_blocking=True)
+                    slot.fetched.record(down)
             pending.append((g0, g1 - g0, slot))
-            if len(pending) >= _MAX_INFLIGHT:
+            if len(pending) >= _MAX_INFLIGHT * n_dev:
                 drain_one()
         while pending:
             drain_one()
     finally:
         with _RINGS_LOCK:
-            _RINGS[device] = (specs, ring)
+            for (i, d), ring in zip(lanes, rings):
+                _RINGS[(d, i)] = (specs, ring)
 
 
 def _check_tier(compute_dtype) -> bool:
@@ -620,10 +646,10 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
     in_specs, out_spec = _tile_specs(chunk, tile, factor, u8_io,
                                      not use_packed)
     _run_chunks(
-        device, ny * nx, chunk, in_specs, out_spec,
+        [device], ny * nx, chunk, in_specs, out_spec,
         lambda g0, g1, bufs: native.gather_tiles_range(
             img, tile, h, nx, g0, g1, need_zero=not use_packed, out=bufs),
-        run, lambda g0, res: native.scatter_tiles(res, g0, nx, out))
+        [run], lambda g0, res: native.scatter_tiles(res, g0, nx, out))
     return out
 
 
@@ -646,9 +672,15 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
     there overlaps the host with the card, and one that blocks holds the
     chunk loop back.  ``release_outputs=True`` drops this function's
     reference after the callback, so that slot of the returned list is
-    None.  ``mesh`` (sharding over several devices) is not ported yet."""
-    if mesh is not None:
-        raise ValueError(f"tiled_sr_batch(mesh=...) {_NOT_PORTED}")
+    None.
+
+    ``mesh`` (`parallel.mesh.make_mesh`) runs the tiles on its devices in
+    place of ``device``: each step of ``chunk`` tiles a device is split
+    evenly over them (``chunk`` counts tiles per device, as in the JAX
+    package), each device with its own copy of the weights, its own
+    pinned slots and copy streams, and its own in-flight window.  A
+    tile's result does not depend on the device that ran it, so the
+    outputs are the single-device path's."""
     fast = _check_tier(compute_dtype)
     if not images:
         return []
@@ -661,7 +693,7 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
         imgs = [np.asarray(im, np.float32) for im in imgs]
     if tile < 1:
         raise ValueError(f"tile must be positive, got {tile}")
-    device = torch.device(device)
+    devices = [torch.device(device)] if mesh is None else list(mesh.devices)
     chunk = _DEFAULT_CHUNK if chunk is None else chunk
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
@@ -669,7 +701,9 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
     metas = [(max(1, -(-im.shape[0] // tile)), max(1, -(-im.shape[1] // tile)))
              for im in imgs]                         # (ny, nx) per image
     starts = np.cumsum([0] + [ny * nx for ny, nx in metas])
-    run, use_packed = _xla_runner(params, factor, tile, fast, u8_io, device)
+    runners = [_xla_runner(params, factor, tile, fast, u8_io, d)
+               for d in devices]
+    use_packed = runners[0][1]
 
     def gather_range(g0: int, g1: int, bufs) -> None:
         # Walk the images that the global tile range [g0, g1) meets and
@@ -694,8 +728,8 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
     cursor = [0]                               # the image the drain is in
     in_specs, out_spec = _tile_specs(chunk, tile, factor, u8_io,
                                      not use_packed)
-    _run_chunks(device, int(starts[-1]), chunk, in_specs, out_spec,
-                gather_range, run,
+    _run_chunks(devices, int(starts[-1]), chunk, in_specs, out_spec,
+                gather_range, [run for run, _ in runners],
                 lambda g0, res: _drain_batch_chunk(
                     res, g0, starts, metas, outs, cursor, remain,
                     on_image_done, release_outputs))
@@ -798,8 +832,9 @@ def tiled_simple(image: np.ndarray, factor: int = 3, *, mode: str,
     def gather(g0, g1, bufs):
         bufs[0][:g1 - g0] = et[g0:g1]
 
-    _run_chunks(device, ny * nx, chunk, [((chunk, side, side, 3), dt)],
+    _run_chunks([device], ny * nx, chunk, [((chunk, side, side, 3), dt)],
                 ((chunk, tf, tf, 3), dt), gather,
-                lambda e: _tile_kernel_simple(e, factor, tile, mode, u8_io),
+                [lambda e: _tile_kernel_simple(e, factor, tile, mode,
+                                               u8_io)],
                 lambda g0, res: native.scatter_tiles(res, g0, nx, out))
     return out

@@ -1,1 +1,2 @@
-"""Training (not ported yet); `data.list_images` serves the folder modes."""
+"""Training: the loop, the crop feed and checkpoints (`data.list_images`
+also serves the folder modes)."""

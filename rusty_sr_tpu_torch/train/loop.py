@@ -1,4 +1,5 @@
-"""Training: Adam on the self-supervised pairs, on one device.
+"""Training: Adam on the self-supervised pairs, on one device or
+data-parallel over `torch.distributed`, one process per device.
 
 The reference's `train` protocol as `rusty_sr_tpu/train/loop.py` runs it:
 
@@ -21,6 +22,16 @@ graph (`GraphedStep`), replayed each step.  The float32 tier runs its forward
 and backward passes inside `ops.conv.exact_f32`: autograd runs the
 backward convolutions in ``loss.backward()``, outside any context the
 forward entered, and cuDNN's default would run them in TF32.
+
+Data-parallel (``group``, a process group already initialised; the
+JAX package's 'data' mesh axis): each rank takes ``batch_size / world``
+crops, and one all-reduce of a flat buffer — every gradient, the loss
+and the mse — summed and divided by the world size makes each rank's
+gradient that of the mean loss over the global batch.  Adam then runs
+the same update on identical inputs everywhere, so the parameters stay
+identical on every rank, bit for bit.  Rank 0 alone logs, validates and
+writes the `.rsr`, the checkpoints and the metrics; every rank runs the
+same steps, so none enters a collective that another skips.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rusty_sr_tpu_torch import params as params_lib
 from rusty_sr_tpu_torch.models.sr_net import (TRUNKS, SRNet, forward_fn,
@@ -144,14 +156,56 @@ def step_precision(cfg: TrainConfig):
     return tf32_on_bf16() if bf16 else exact_f32()
 
 
+def world_of(group) -> tuple:
+    """(rank, world size) of a process group; (0, 1) for None."""
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _pack(params: dict, loss, mse, flat: torch.Tensor) -> None:
+    """Every gradient, then the loss and the mse, into ``flat``."""
+    off = 0
+    for p in params.values():
+        flat[off:off + p.numel()].copy_(p.grad.reshape(-1))
+        off += p.numel()
+    flat[off].copy_(loss.detach())
+    flat[off + 1].copy_(mse.detach())
+
+
+def _unpack(flat: torch.Tensor, params: dict, world: int):
+    """``flat`` (summed over the ranks) divided by ``world``, written back
+    into the gradients; returns views of its (loss, mse)."""
+    flat.div_(world)
+    off = 0
+    for p in params.values():
+        p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
+        off += p.numel()
+    return flat[off], flat[off + 1]
+
+
+def _flat_buffer(params: dict) -> torch.Tensor:
+    p0 = next(iter(params.values()))
+    n = sum(p.numel() for p in params.values())
+    return torch.empty(n + 2, dtype=torch.float32, device=p0.device)
+
+
 def train_step(params: dict, opt: torch.optim.Optimizer, hr: torch.Tensor,
-               cfg: TrainConfig):
+               cfg: TrainConfig, group=None):
     """One optimizer step on the batch ``hr`` (on the parameters'
-    device); returns (loss, mse) as device tensors, unsynchronised."""
+    device); returns (loss, mse) as device tensors, unsynchronised.  With
+    a process ``group``, the gradients, loss and mse are averaged over
+    its ranks by one all-reduce before Adam's update."""
     opt.zero_grad(set_to_none=True)
     with step_precision(cfg):
         loss, mse = loss_fn(params, hr, cfg)
         loss.backward()
+    if group is not None:
+        flat = _flat_buffer(params)
+        _pack(params, loss, mse, flat)
+        dist.all_reduce(flat, group=group)
+        loss, mse = (t.clone() for t in _unpack(flat, params,
+                                                world_of(group)[1]))
     opt.step()
     return loss.detach(), mse.detach()
 
@@ -169,13 +223,22 @@ class GraphedStep:
     the first replay is the step the caller asked for.  The returned loss
     and mse are copies: the graph's own outputs are overwritten by the
     next replay.  After a call, each parameter's ``.grad`` holds that
-    step's gradient."""
+    step's gradient.
+
+    With a process ``group`` the step is two graphs and a collective
+    between them: forward and backward packing the gradients, loss and
+    mse into a static flat buffer; the all-reduce of that buffer, outside
+    any graph (gloo's cannot be captured, and NCCL's would need its
+    warm-up outside the capture); then the division and Adam.  The
+    warm-up steps run the eager data-parallel step, so every rank makes
+    the same collectives in the same order."""
 
     WARMUP = 3
 
     def __init__(self, params: dict, opt: torch.optim.Optimizer,
-                 cfg: TrainConfig):
+                 cfg: TrainConfig, group=None):
         self.params, self.opt, self.cfg = params, opt, cfg
+        self.group = group
         self.key = None
 
     def _capture(self, hr: torch.Tensor) -> None:
@@ -190,12 +253,30 @@ class GraphedStep:
         side.wait_stream(main)
         with torch.cuda.stream(side):
             for _ in range(self.WARMUP):
-                train_step(p, opt, self.x, self.cfg)
+                train_step(p, opt, self.x, self.cfg, self.group)
         main.wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
         opt.zero_grad(set_to_none=True)
-        with torch.cuda.graph(self.graph):
-            self.loss, self.mse = train_step(p, opt, self.x, self.cfg)
+        if self.group is None:
+            self.graphs = [torch.cuda.CUDAGraph()]
+            with torch.cuda.graph(self.graphs[0]):
+                self.loss, self.mse = train_step(p, opt, self.x, self.cfg)
+        else:
+            # Another thread (a collective's watchdog) may query the
+            # device while a stream captures.
+            torch.cuda.synchronize()
+            self.flat = _flat_buffer(p)
+            self.graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+            with torch.cuda.graph(self.graphs[0],
+                                  capture_error_mode="thread_local"):
+                with step_precision(self.cfg):
+                    loss, mse = loss_fn(p, self.x, self.cfg)
+                    loss.backward()
+                _pack(p, loss, mse, self.flat)
+            with torch.cuda.graph(self.graphs[1],
+                                  capture_error_mode="thread_local"):
+                self.loss, self.mse = _unpack(self.flat, p,
+                                              world_of(self.group)[1])
+                opt.step()
         kept = {id(t) for t, _ in kept_st}
         with torch.no_grad():
             for t, v in kept_p + kept_st:
@@ -211,19 +292,25 @@ class GraphedStep:
             self._capture(hr)
             self.key = key
         self.x.copy_(hr)
-        self.graph.replay()
+        self.graphs[0].replay()
+        if self.group is not None:
+            dist.all_reduce(self.flat, group=self.group)
+            self.graphs[1].replay()
         return self.loss.clone(), self.mse.clone()
 
 
-def make_train_step(cfg: TrainConfig, params: dict):
+def make_train_step(cfg: TrainConfig, params: dict, group=None):
     """(step, opt): ``step(hr) -> (loss, mse)`` takes one Adam step over
     ``params`` on the batch ``hr`` (on their device), ``opt`` being that
-    Adam.  On CUDA the step is a `GraphedStep`; on the CPU, `train_step`."""
+    Adam; with a process ``group``, data-parallel over its ranks.  On
+    CUDA the step is a `GraphedStep`; on the CPU, `train_step`."""
     cuda = next(iter(params.values())).is_cuda
     opt = make_optimizer(cfg, params, capturable=cuda)
     if cuda:
-        return GraphedStep(params, opt, cfg), opt
-    return (lambda hr: train_step(params, opt, hr, cfg)), opt
+        return GraphedStep(params, opt, cfg, group), opt
+    if group is None:
+        return (lambda hr: train_step(params, opt, hr, cfg)), opt
+    return (lambda hr: train_step(params, opt, hr, cfg, group)), opt
 
 
 def train_steps(step, hrs: torch.Tensor):
@@ -387,7 +474,7 @@ def train_loop(cfg: TrainConfig, train_batches, *, start_params=None,
                native_ckpt_dir: Optional[str] = None,
                resume_from: Optional[str] = None,
                validate: Optional[bool] = None,
-               seed: int = 0, device="cuda") -> dict:
+               seed: int = 0, device="cuda", group=None) -> dict:
     """Run the reference's training protocol on ``device``; returns the
     final parameters as a numpy tree.
 
@@ -399,15 +486,33 @@ def train_loop(cfg: TrainConfig, train_batches, *, start_params=None,
     ``resume_from``: such a checkpoint, or a folder of them (the latest),
     restoring parameters, Adam state and the step counter; a folder with
     none yet starts fresh.  ``validate``: whether the validation cadence
-    is active (default: ``bool(val_images)``)."""
+    is active (default: ``bool(val_images)``).
+
+    ``group``: an initialised `torch.distributed` process group to train
+    data-parallel over, this process being one rank on ``device``.  Each
+    rank's ``train_batches`` yields its ``cfg.batch_size / world`` crops
+    and the same number of batches; every rank starts from the same
+    parameters (``start_params``, ``seed`` or ``resume_from``, read on
+    each) and passes the same ``validate``.  Rank 0 alone logs,
+    validates and writes ``param_file``, ``metrics_file`` and the
+    checkpoints; the ranks return together, after its last write."""
     _check_config(cfg)
     device = torch.device(device)
+    rank, world = world_of(group)
+    if cfg.batch_size % world:
+        raise ValueError(f"batch size {cfg.batch_size} does not divide "
+                         f"over {world} processes")
     if validate is None:
         validate = bool(val_images)
+    if rank != 0:
+        param_file = metrics_file = val_images = None
+
+        def log(_msg):
+            pass
     tree = start_params if start_params is not None else \
         params_lib.init_params(seed, cfg.factor)
     model = SRNet(tree, cfg.factor, cfg.trunk, cfg.amp).to(device)
-    step_fn, opt = make_train_step(cfg, model.params())
+    step_fn, opt = make_train_step(cfg, model.params(), group)
     start_step = 0
     if resume_from is not None:
         start_step = _resume(resume_from, native_ckpt_dir, model, opt, log)
@@ -425,7 +530,7 @@ def train_loop(cfg: TrainConfig, train_batches, *, start_params=None,
         nonlocal last_native_ckpt, last_rsr_ckpt
         do_ckpt = step % cfg.checkpoint_every == 0 or step == 1
         do_val = validate and (step % cfg.val_every == 0 or step == 1)
-        if not (do_ckpt or do_val):
+        if rank != 0 or not (do_ckpt or do_val):
             return
         host = model.tree()
         if do_ckpt and param_file is not None:
@@ -453,15 +558,15 @@ def train_loop(cfg: TrainConfig, train_batches, *, start_params=None,
     it = iter(train_batches)
     try:
         while step < budget_steps:
-            group = spd if (spd > 1 and step >= 1 and step % spd == 0
+            n_up = spd if (spd > 1 and step >= 1 and step % spd == 0
                             and budget_steps - step >= spd) else 1
             batches = []
-            for _ in range(group):
+            for _ in range(n_up):
                 hr = next(it, None)
                 if hr is None:
                     break
                 batches.append(hr)
-            if len(batches) == spd and group == spd and spd > 1:
+            if len(batches) == spd and n_up == spd and spd > 1:
                 loss, mse = train_steps(step_fn, upload(np.stack(batches)))
                 step += spd
                 cadence(step, loss, mse)
@@ -470,7 +575,7 @@ def train_loop(cfg: TrainConfig, train_batches, *, start_params=None,
                     step += 1
                     loss, mse = step_fn(upload(hr))
                     cadence(step, loss, mse)
-            if not batches or len(batches) < group:
+            if not batches or len(batches) < n_up:
                 break   # the input stream ended
     finally:
         if mf is not None:
@@ -479,7 +584,13 @@ def train_loop(cfg: TrainConfig, train_batches, *, start_params=None,
     if param_file is not None and step > last_rsr_ckpt:
         # The final parameters, whatever the cadence.
         params_lib.save_rsr_file(param_file, host, cfg.factor)
-    if native_ckpt_dir is not None and step > last_native_ckpt:
+    if rank == 0 and native_ckpt_dir is not None and step > last_native_ckpt:
         from rusty_sr_tpu_torch.train import checkpoint as _ck
         _ck.save_native(native_ckpt_dir, step, host, opt.state_dict())
+    if group is not None:
+        # No rank returns before rank 0's last write.
+        nccl = dist.get_backend(group) == "nccl"
+        dist.barrier(group=group, device_ids=[
+            torch.cuda.current_device() if device.index is None
+            else device.index] if nccl else None)
     return host

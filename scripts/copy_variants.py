@@ -49,10 +49,11 @@ SHAPES = [(768, 1024)] * 4 + [(300, 517), (97, 131), (241, 243), (16, 16),
                               (48, 64), (64, 48)]
 
 
-def run_chunks_compute(device, n_tiles, chunk, in_specs, out_spec, gather,
-                       run, scatter):
+def run_chunks_compute(devices, n_tiles, chunk, in_specs, out_spec, gather,
+                       runs, scatter):
     """The shipped loop with both copies on the compute stream (its ring
-    kept per shape, as the shipped loop keeps its own)."""
+    kept per shape, as the shipped loop keeps its own); one device."""
+    (device,), (run,) = devices, runs
     pending: deque = deque()
     ring = _COMPUTE_RINGS.setdefault((tuple(in_specs), out_spec), [
         tiling._Slot(in_specs, out_spec)
@@ -87,9 +88,11 @@ def run_chunks_compute(device, n_tiles, chunk, in_specs, out_spec, gather,
         drain_one()
 
 
-def run_chunks_pageable(device, n_tiles, chunk, in_specs, out_spec, gather,
-                        run, scatter):
-    """The loop before the ring: pageable arrays, blocking copies."""
+def run_chunks_pageable(devices, n_tiles, chunk, in_specs, out_spec, gather,
+                        runs, scatter):
+    """The loop before the ring: pageable arrays, blocking copies; one
+    device."""
+    (device,), (run,) = devices, runs
     pending: deque = deque()
 
     def drain_one():

@@ -533,13 +533,14 @@ def test_cuda_batch_pinned_slots(cuda_device, monkeypatch, tier, tile,
     for key, outs in runs.items():
         for a, b in zip(outs, first):
             assert a.tobytes() == b.tobytes(), key
-    # One ring per device, of the last call's shape and at most the
-    # deepest window's slots; another shape replaces it.
-    specs, ring = tiling._RINGS[torch.device(cuda_device)]
+    # One ring per lane (a device and its place in the mesh), of the last
+    # call's shape and at most the deepest window's slots; another shape
+    # replaces it.
+    specs, ring = tiling._RINGS[(torch.device(cuda_device), 0)]
     assert specs[1][0] == (4, tile * 3, tile * 3, 3) and len(ring) <= 9
     tiling.tiled_sr(anime, imgs[2], 3, tile=tile + 2, chunk=4,
                     compute_dtype=cd, device=cuda_device)
-    specs, ring = tiling._RINGS[torch.device(cuda_device)]
+    specs, ring = tiling._RINGS[(torch.device(cuda_device), 0)]
     assert specs[1][0] == (4, (tile + 2) * 3, (tile + 2) * 3, 3)
     assert len(ring) == 1
     for img, out in zip(imgs, first):
@@ -625,6 +626,78 @@ def test_cuda_graphed_step_matches_eager(cuda_device, kw):
     for k in tree:
         np.testing.assert_allclose(p_g[k], p_e[k], rtol=0, atol=1e-4,
                                    err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier,tile", [("exact", 62), ("packed", 62),
+                                       ("flat", 61)])
+def test_cuda_mesh_replicas_byte_identical(cuda_device, tier, tile):
+    """`tiled_sr_batch` over a mesh of two replicas on the card (one
+    device listed twice: two rings, two pairs of copy streams, two
+    copies of the weights) gives the single-device outputs, byte for
+    byte."""
+    from rusty_sr_tpu_torch.parallel.mesh import make_mesh
+    anime = load_builtin("anime")
+    imgs = serving_images()
+    cd = None if tier == "exact" else torch.bfloat16
+    single = tiling.tiled_sr_batch(anime, imgs, 3, tile=tile, chunk=2,
+                                   compute_dtype=cd, device=cuda_device)
+    mesh = make_mesh(devices=[cuda_device, cuda_device])
+    before = shuffle.EPILOGUE_LAUNCHES
+    sharded = tiling.tiled_sr_batch(anime, imgs, 3, tile=tile, chunk=2,
+                                    compute_dtype=cd, mesh=mesh)
+    assert shuffle.EPILOGUE_LAUNCHES > before
+    for a, b in zip(single, sharded):
+        assert a.tobytes() == b.tobytes()
+    assert (torch.device(cuda_device), 1) in tiling._RINGS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_cuda_graphed_dp_step_matches_eager(cuda_device, backend):
+    """The data-parallel step over a group of one: its two CUDA graphs
+    with the all-reduce between them against the eager data-parallel
+    `train_step`, over 8 steps with a change of batch shape, to the
+    bounds of `test_cuda_graphed_step_matches_eager`; and the graphed
+    step of the group against the graphed step without one."""
+    import socket
+    import torch.distributed as dist
+    from rusty_sr_tpu_torch.train import loop as TL
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        tree = init_params(4, 3)
+        r = np.random.default_rng(6)
+        xs = [torch.from_numpy(r.integers(
+            0, 256, (2 if i < 4 else 3, 48, 48, 3), dtype=np.uint8))
+            .to(cuda_device) for i in range(8)]
+        cfg = TL.TrainConfig(crop=48)
+        runs = []
+        for mode in ("eager", "graphed", "graphed, no group"):
+            group = None if mode.endswith("no group") else dist.group.WORLD
+            p = {k: torch.tensor(v, device=cuda_device, requires_grad=True)
+                 for k, v in tree.items()}
+            if mode == "eager":
+                opt = TL.make_optimizer(cfg, p)
+
+                def step(hr, p=p, opt=opt):
+                    return TL.train_step(p, opt, hr, cfg, dist.group.WORLD)
+            else:
+                step, _ = TL.make_train_step(cfg, p, group)
+                assert isinstance(step, TL.GraphedStep)
+            losses = [float(step(x)[0]) for x in xs]
+            runs.append((losses, {k: v.detach().cpu().numpy()
+                                  for k, v in p.items()}))
+    finally:
+        dist.destroy_process_group()
+    for losses, params in runs[1:]:
+        np.testing.assert_allclose(losses, runs[0][0], rtol=1e-3)
+        for k in tree:
+            np.testing.assert_allclose(params[k], runs[0][1][k], rtol=0,
+                                       atol=1e-4, err_msg=k)
 
 
 @pytest.mark.cuda

@@ -24,6 +24,7 @@ from rusty_sr_tpu import cli as j_cli
 from rusty_sr_tpu.params import load_builtin
 from rusty_sr_tpu_torch import api, cli
 from rusty_sr_tpu_torch.parallel import tiling
+from rusty_sr_tpu_torch.parallel.mesh import make_mesh
 from rusty_sr_tpu_torch.utils.imageio import load_image_u8, save_image_u8
 
 # LR shapes: 2, 2, 4 and 6 tiles of 16, 14 in all, so chunks of 4 span
@@ -123,8 +124,11 @@ def test_tiled_sr_batch_contract(folder):
     with pytest.raises(ValueError, match="share the input dtype"):
         tiling.tiled_sr_batch(anime, [u8, u8 / 255.0], tile=16,
                               device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        tiling.tiled_sr_batch(anime, [u8], mesh=object(), device="cpu")
+    # a mesh of two CPU entries runs the tiles in place of ``device``
+    mesh = make_mesh(2, devices=["cpu", "cpu"])
+    one = tiling.tiled_sr_batch(anime, [u8], tile=16, chunk=4, device="cpu")
+    two = tiling.tiled_sr_batch(anime, [u8], tile=16, chunk=4, mesh=mesh)
+    assert two[0].dtype == np.uint8 and codes(two[0], one[0]) <= 1
     # float input takes the flat tier with f32 tiles and gives float out,
     # as tiled_sr does for one image
     f = u8.astype(np.float32) / 255.0
@@ -297,8 +301,9 @@ def test_folder_unreadable_only_and_bomb(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "2", "DIR", "OUT"], ["watch", "--mesh", "2", "DIR", "OUT"],
-    ["train", "--mesh", "2", "w.rsr", "DIR"],
+    ["--mesh", "data=1,spatial=2", "DIR", "OUT"],
+    ["watch", "--mesh", "data=1,model=2", "DIR", "OUT"],
+    ["train", "--mesh", "data=2,model=2", "w.rsr", "DIR"],
     ["--platform", "cpu", "--engine", "fused", "-p", "anime", "DIR", "OUT"]],
     ids=["folder-mesh", "watch-mesh", "train", "folder-fused"])
 def test_refused_paths_exit_2(argv, tmp_path, capsys):

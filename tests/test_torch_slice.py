@@ -236,13 +236,14 @@ def test_cli_custom_weights_equal_builtin(lr_png, tmp_path):
     assert (tmp_path / "p.png").read_bytes() == (tmp_path / "c.png").read_bytes()
 
 
-# A folder, watch and train run since the serving and training slices;
-# with --mesh they still exit 2 (tests/test_torch_serving.py and
-# tests/test_torch_train_loop.py test them).
+# --mesh runs its data axis on every path; its spatial and model axes
+# still exit 2 (tests/test_torch_serving.py and
+# tests/test_torch_train_loop.py test them too).
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "2", "IN", "OUT"], ["--mesh", "2", "DIR", "OUT"],
-    ["train", "--mesh", "2", "w.rsr", "DIR"],
-    ["watch", "--mesh", "2", "DIR", "OUT"]],
+    ["--mesh", "data=2,spatial=2", "IN", "OUT"],
+    ["--mesh", "data=1,model=2", "DIR", "OUT"],
+    ["train", "--mesh", "data=2,spatial=2", "w.rsr", "DIR"],
+    ["watch", "--mesh", "data=1,spatial=4", "DIR", "OUT"]],
     ids=["mesh", "folder", "train", "watch"])
 def test_cli_unported_paths_exit_2(argv, tmp_path, capsys):
     argv = [str(tmp_path) if a == "DIR" else a for a in argv]

@@ -292,8 +292,9 @@ def test_cli_bad_flags_match_jax(folder, tmp_path, capsys, flags, msg):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2"], ["--precision", "high"],
-    ["--coordinator", "h:1", "--num_processes", "2", "--process_id", "0"]],
+    ["--mesh", "data=2,model=2"], ["--precision", "high"],
+    ["--coordinator", "h:1", "--num_processes", "2", "--process_id", "0",
+     "--mesh", "data=2,spatial=2"]],
     ids=["mesh", "precision-high", "multi-host"])
 def test_cli_unported_train_flags_exit_2(folder, capsys, flags):
     assert cli.main(["train", *flags, "w.rsr", folder]) == 2
