@@ -757,6 +757,9 @@ def training_phase(cli, tiling, shuffle, params, imageio, rng, card,
                 and g64_err <= 1e-4):
             fail("the card's f32 training step disagrees with the CPU or "
                  "with float64")
+        # Phase 4e holds --precision high to the same float64 step.
+        got["ref"] = {"init": init, "big": big, "batch": small_batches[0],
+                      "loss64": l_64, "grad64": g_64}
 
         # 4. Validation with the epilogue kernel against its plain version.
         val = [imageio.load_image_u8(os.path.join(src, f"t{i}.png"))
@@ -1113,6 +1116,370 @@ def multi_device_phase(cli, tiling, imageio, params, anime, images, rng,
                  "process, or validated without the epilogue kernel")
         got["epi"]["xla f32"] += int(r0["epi"]) + int(r1["epi"])
         got["launches"]["epi"] += int(r0["epi"]) + int(r1["epi"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return got
+
+
+def _mesh_rank(rank: int, world: int, n_spatial: int, n_model: int,
+               port: int, src: str, out: str) -> None:
+    """One rank of phase 4e's mesh runs (a spawned process): gloo on
+    cuda:0, `api.train_folder` at batch 4, crop 192, 10 steps from the
+    anime weights on a (world / S / M, S, M) mesh, checkpoints at steps 1
+    and 10, validation at step 1 on rank 0; writes its final parameters,
+    its epilogue launches and its wall to ``out + rank<r>.npz``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    import torch.distributed as dist
+    from rusty_sr_tpu_torch import api, params
+    from rusty_sr_tpu_torch.ops.cuda import shuffle
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        shuffle.EPILOGUE_LAUNCHES = 0
+        t0 = time.time()
+        tree = api.train_folder(
+            src, steps=10, start=os.path.join(params._builtin_dir(),
+                                              "anime.rsr"),
+            batch_size=4, crop=192, val_folder=src, val_max=2,
+            ckpt_dir=out + "ck", checkpoint_every=10, param_file=out + ".rsr",
+            metrics_file=out + ".jsonl", device="cuda:0",
+            group=dist.group.WORLD, n_spatial=n_spatial, n_model=n_model)
+        torch.cuda.synchronize()
+        np.savez(f"{out}rank{rank}.npz", epi=shuffle.EPILOGUE_LAUNCHES,
+                 wall=time.time() - t0,
+                 **{"p_" + k: v for k, v in tree.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_axes_phase(cli, imageio, params, anime, images, rng, card,
+                    zero_counts, counts, stage_shape, ref):
+    """Phase 4e, the rest of training on the one card: ``--precision
+    high`` (its step against float64, its graphed step timed in turns
+    with f32 and ``--amp`` at batch 4 and 32, the CLI's train with
+    validation); the mesh's spatial and model axes as gloo ranks of
+    `train_folder` on cuda:0, (1, 2, 1), (1, 1, 2) and (1, 2, 2), each
+    against one process on the same batches; `make_sharded_apply` over
+    four entries of cuda:0 as (2, 2, 1) against the whole batch; and the
+    CLI with ``--mesh data=1,spatial=2`` and ``data=1,model=2`` against
+    no mesh.  ``ref``: phase 4c's init, batches and float64 step.
+    Returns the launches of the counted runs, as phase 4d's."""
+    import contextlib
+    import io
+    import multiprocessing
+    import socket
+    import torch
+    from rusty_sr_tpu_torch import api
+    from rusty_sr_tpu_torch.models.sr_net import sr_apply
+    from rusty_sr_tpu_torch.parallel import mesh as M
+    from rusty_sr_tpu_torch.train import checkpoint as ck
+    from rusty_sr_tpu_torch.train import loop as TL
+
+    dev = torch.device("cuda")
+    got = {"launches": {"f32": 0, "bf16": 0, "d2s": 0, "epi": 0, "conv": 0},
+           "epi": {"xla u8": 0, "packed": 0, "xla f32": 0}, "shapes": {},
+           "high": {}}
+
+    def add(n, form):
+        for k in got["launches"]:
+            got["launches"][k] += n[k]
+        got["epi"][form] += n["epi"]
+        for key, v in n["shapes"].items():
+            got["shapes"][key] = got["shapes"].get(key, 0) + v
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    def quiet(argv, what):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        if rc != 0:
+            fail(f"{what} exited {rc}:\n{buf.getvalue()}")
+        return buf.getvalue()
+
+    def leaf_err(a, b):
+        return max(float(np.abs(a[k] - b[k]).max())
+                   / float(np.abs(b[k]).max()) for k in b)
+
+    # 1. --precision high: the card's graphed step against float64.
+    init, hi = ref["init"], TL.TrainConfig(precision="high")
+    p = {k: torch.tensor(v, device=dev, requires_grad=True)
+         for k, v in init.items()}
+    step, _ = TL.make_train_step(hi, p)
+    loss, _ = step(torch.from_numpy(ref["batch"]).to(dev))
+    g_high = {k: v.grad.double().cpu().numpy() for k, v in p.items()}
+    g_err = leaf_err(g_high, ref["grad64"])
+    l_rel = abs(float(loss) - ref["loss64"]) / abs(ref["loss64"])
+    got["high"]["grad64"] = g_err
+    print(f"--precision high step (its CUDA graph; init_params({SEED}, 3), "
+          f"batch 4, crop 192) vs the float64 CPU step: loss rel "
+          f"{l_rel:.3g} (tol 1e-5), worst gradient leaf {g_err:.3g} of its "
+          f"max (tol 1e-4; phase 4c's f32 and TF32 figures above)")
+    if not (l_rel <= 1e-5 and g_err <= 1e-4):
+        fail("the --precision high step disagrees with float64")
+
+    # 2. Step times of the graphed step, f32 / --amp / high in turns; the
+    # high tier's eager step, its busy share, conv share and peak memory.
+    tiers = (("f32", dict()), ("--amp", dict(amp=True)),
+             ("--precision high", dict(precision="high")))
+    for bsz in (4, 32):
+        x = torch.from_numpy(ref["big"][:bsz]).to(dev)
+        steps, peak = {}, {}
+        for name, kw in tiers:
+            c = TL.TrainConfig(batch_size=bsz, **kw)
+            pg = {k: torch.tensor(v, device=dev, requires_grad=True)
+                  for k, v in init.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            graph, _ = TL.make_train_step(c, pg)
+            for _ in range(5):
+                graph(x)
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated() - base
+            steps[name] = lambda g=graph: g(x)
+        pe = {k: torch.tensor(v, device=dev, requires_grad=True)
+              for k, v in init.items()}
+        hc = TL.TrainConfig(batch_size=bsz, precision="high")
+        oe = TL.make_optimizer(hc, pe)
+        for _ in range(3):
+            TL.train_step(pe, oe, x, hc)
+        steps["high eager"] = lambda: TL.train_step(pe, oe, x, hc)
+        order = [n for n, _ in tiers] + ["high eager"]
+        ms = {n: [] for n in order}
+        for n in order + order[::-1]:
+            ms[n].append(cuda_time_ms(steps[n], iters=20))
+        share = {}
+        for n in ("--precision high", "high eager"):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    steps[n]()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy = busy_share(prof, wall)
+            share[n] = None if busy is None else busy[0]
+            if n == "high eager":
+                conv_us = sum(getattr(e, "device_time_total",
+                                      getattr(e, "cuda_time_total", 0))
+                              for e in prof.key_averages()
+                              if e.key in ("aten::convolution",
+                                           "aten::convolution_backward"))
+                share["conv"] = (None if busy is None else
+                                 conv_us * 1e-6 / (busy[0] * wall))
+        flops = step_flops(bsz, 192, False)
+        b_high = 3 * flops / PEAK_BF16 * 1e3
+        t = {n: sum(v) / 2 for n, v in ms.items()}
+        got["high"][bsz] = {"graph": t["--precision high"],
+                            "eager": t["high eager"], "bound": b_high,
+                            "f32": t["f32"], "amp": t["--amp"]}
+
+        def pct(v):
+            return "not measured" if v is None else f"{v:.1%}"
+        print(f"train step, batch {bsz}, crop 192, CUDA graphs in turns (CUDA "
+              f"events, 2 x 20 steps): f32 {t['f32']:.3f} ms, --amp "
+              f"{t['--amp']:.3f} ms, --precision high "
+              f"{t['--precision high']:.3f} ms/step = "
+              f"{bsz / t['--precision high'] * 1e3:.1f} samples/s (eager "
+              f"{t['high eager']:.3f} ms); high: busy graph "
+              f"{pct(share['--precision high'])}, eager "
+              f"{pct(share['high eager'])}, convolutions "
+              f"{pct(share['conv'])} of the eager step's kernel time; peak "
+              f"memory f32 / --amp / high "
+              f"{' / '.join(f'{peak[n] / 2**20:.1f}' for n, _ in tiers)} "
+              f"MiB; high's bound {b_high:.4f} ms (3 x {flops / 1e9:.2f} "
+              f"GFLOP at 989 TFLOP/s bf16); {card}")
+        del steps
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_axes_")
+    try:
+        def out(name):
+            return os.path.join(tmp, name)
+
+        src = out("ti")
+        os.makedirs(src)
+        for i in range(4):
+            imageio.save_image_u8(os.path.join(src, f"t{i}.png"),
+                                  train_image(rng, 384, 512))
+        anime_rsr = os.path.join(params._builtin_dir(), "anime.rsr")
+
+        # 3. train --precision high through the CLI, validating.
+        zero_counts()
+        quiet(["train", out("high.rsr"), src, "-s", anime_rsr, "--precision",
+               "high", "-v", src, "-m", "2", "--max_steps", "10",
+               "--ckpt_every", "10", "--val_every", "10", "--metrics",
+               out("high.jsonl")], "train CLI --precision high")
+        n = counts()
+        add(n, "xla f32")
+        with open(out("high.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        size = os.path.getsize(out("high.rsr"))
+        print(f"train CLI --precision high, 10 steps of batch 4 from anime, "
+              f"validation at steps 1 and 10: losses "
+              f"{[round(r['loss'], 6) for r in recs]}, val PSNR "
+              f"{[round(r['val_psnr'], 4) for r in recs]}; .rsr {size} "
+              f"bytes; epilogue launches {n['epi']}")
+        if size != 1_043_676 or [r["step"] for r in recs] != [1, 10] or \
+                not all(np.isfinite(r["val_psnr"]) for r in recs) or \
+                n["epi"] < 1:
+            fail("train --precision high: wrong files or no epilogue launch")
+
+        # 4. The spatial and model axes: gloo ranks on cuda:0 against one
+        # process on the same batches (data index 0 crops what one
+        # process crops).
+        api.train_folder(src, steps=10, start=anime_rsr, batch_size=4,
+                         crop=192, ckpt_dir=out("oneck"), checkpoint_every=10,
+                         param_file=out("one.rsr"),
+                         metrics_file=out("one.jsonl"), device="cuda")
+        one1, _, _ = ck.restore_native(os.path.join(out("oneck"),
+                                                    "step_00000001"))
+        one10 = params.load_rsr_file(out("one.rsr"), 3)
+        with open(out("one.jsonl")) as f:
+            one_loss = {r["step"]: r["loss"] for r in map(json.loads, f)}
+        ctx = multiprocessing.get_context("spawn")
+        for axes in ((1, 2, 1), (1, 1, 2), (1, 2, 2)):
+            world = axes[0] * axes[1] * axes[2]
+            tag = out("m%d%d%d" % axes)
+            port = free_port()
+            procs = [ctx.Process(target=_mesh_rank, args=(
+                r, world, axes[1], axes[2], port, src, tag))
+                for r in range(world)]
+            t0 = time.time()
+            for pr in procs:
+                pr.start()
+            try:
+                for pr in procs:
+                    pr.join(timeout=300)
+            finally:
+                for pr in procs:
+                    if pr.is_alive():
+                        pr.terminate()
+                        pr.join()
+            wall = time.time() - t0
+            if any(pr.exitcode != 0 for pr in procs):
+                fail(f"the {axes} gloo ranks exited "
+                     f"{[pr.exitcode for pr in procs]}")
+            ranks = [np.load(f"{tag}rank{r}.npz") for r in range(world)]
+            names = [k for k in ranks[0].files if k.startswith("p_")]
+            same = all(r[k].tobytes() == ranks[0][k].tobytes()
+                       for r in ranks[1:] for k in names)
+            with open(tag + ".jsonl") as f:
+                recs = {r["step"]: r for r in map(json.loads, f)}
+            ms = (recs[10]["wall_s"] - recs[1]["wall_s"]) / 9 * 1e3
+            t1, opt_state, _ = ck.restore_native(os.path.join(
+                tag + "ck", "step_00000001"))
+            t10, opt10, _ = ck.restore_native(os.path.join(
+                tag + "ck", "step_00000010"))
+            ck.check_adam_state(opt10, t10)          # the unsharded layout
+            rsr = params.load_rsr_file(tag + ".rsr", 3)
+            l_rel = abs(recs[1]["loss"] - one_loss[1]) / one_loss[1]
+            p1 = max(float(np.abs(t1[k] - one1[k]).max()) for k in one1)
+            p10 = max(float(np.abs(rsr[k] - one10[k]).max()) for k in one10)
+            epi = int(ranks[0]["epi"])
+            print(f"mesh (data, spatial, model) = {axes}: {world} gloo ranks "
+                  f"on cuda:0, train_folder batch 4, crop 192, 10 steps from "
+                  f"anime: parameters of the ranks "
+                  f"{'bit-identical' if same else 'DIFFERENT'} after the "
+                  f"gather; against one process on the same batches: step 1 "
+                  f"loss rel {l_rel:.3g} (tol 1e-5), parameters after step 1 "
+                  f"max abs {p1:.3g} (tol 2e-6), rank 0's .rsr after step 10 "
+                  f"{p10:.3g} (tol 1e-4, phase 4c's 10-step bound); rank 0's "
+                  f"validation launched the epilogue {epi} times; "
+                  f"{ms:.3f} ms/step (steps 2-10, host clock from the "
+                  f"metrics; {wall:.1f} s wall with the processes' start: a "
+                  f"wiring check, not scaling; {card})")
+            if not (same and l_rel <= 1e-5 and p1 <= 2e-6 and p10 <= 1e-4
+                    and epi >= 1):
+                fail(f"the {axes} mesh disagrees with one process or "
+                     "validated without the epilogue kernel")
+            got["epi"]["xla f32"] += epi
+            got["launches"]["epi"] += epi
+
+        # 5. make_sharded_apply over four entries of cuda:0 as (2, 2, 1).
+        mesh = M.make_mesh(2, 2, 1, devices=["cuda:0"] * 4)
+        x = np.stack([synthetic_image(rng, 100, 160) for _ in range(4)]
+                     ).astype(np.float32) / 255.0
+        shards = M.shard_batch(mesh, x)
+        sharded = M.unshard_batch(mesh, M.make_sharded_apply(mesh, 3)(
+            anime, shards))
+        with torch.no_grad():
+            whole = sr_apply(params.to_torch(anime, dev),
+                             torch.from_numpy(x).to(dev), 3).cpu()
+        err = float((sharded - whole).abs().max())
+        print(f"make_sharded_apply over cuda:0 x 4 as (2, 2, 1), 4 x 100x160 "
+              f"LR: max abs {err:.3g} from the whole batch (tol 1e-5)")
+        if not err <= 1e-5:
+            fail("make_sharded_apply with a spatial axis disagrees")
+
+        # 6. The CLI with the spatial and model axes: one card, so the
+        # mesh's devices are cuda:0 listed S * M times (as phase 4d's
+        # replicas); the tiles run on the data axis's one device.
+        dst_dir = out("in")
+        os.makedirs(dst_dir)
+        for i, im in enumerate(images[:1] + images[-3:]):
+            imageio.save_image_u8(os.path.join(dst_dir, f"im{i}.png"), im)
+        one = os.path.join(dst_dir, "im0.png")
+        real_parse = cli._parse_mesh
+
+        def one_card(spec, device):
+            a = cli._parse_mesh_spec(spec)
+            return M.make_mesh(a["data"], a["spatial"], a["model"],
+                               devices=[device] * (a["data"] * a["spatial"]
+                                                   * a["model"]))
+        cli._parse_mesh = one_card
+        try:
+            for spec in ("data=1,spatial=2", "data=1,model=2"):
+                for what, argv, form in (
+                        ("single image", ["-p", "anime", one], "xla u8"),
+                        ("folder --fast", ["-p", "anime", "--fast", dst_dir],
+                         "packed"),
+                        ("watch --once", ["watch", "--once", "-p", "anime",
+                                          dst_dir], "xla u8")):
+                    tag = what.split()[0]
+                    ext = ".png" if tag == "single" else ""
+                    plain = out(f"{tag}_plain{ext}")
+                    if not os.path.exists(plain):
+                        quiet([*argv, plain], f"CLI {what}")
+                    zero_counts()
+                    dst = out(f"{tag}_{spec.replace(',', '_')}{ext}")
+                    rest = argv[1:] if argv[0] == "watch" else argv
+                    quiet(([argv[0]] if argv[0] == "watch" else [])
+                          + ["--mesh", spec, *rest, dst],
+                          f"CLI {what} --mesh {spec}")
+                    n = counts()
+                    if tag == "single":
+                        pairs, same = [(plain, dst)], True
+                    else:
+                        names = sorted(os.listdir(plain))
+                        pairs = [(os.path.join(plain, f),
+                                  os.path.join(dst, f)) for f in names]
+                        same = names == sorted(os.listdir(dst))
+                    same = same and all(
+                        imageio.load_image_u8(a).tobytes()
+                        == imageio.load_image_u8(b).tobytes()
+                        for a, b in pairs)
+                    print(f"CLI {what} --mesh {spec} (cuda:0 listed twice): "
+                          f"{'byte-identical to' if same else 'DIFFERENT from'}"
+                          f" the run without it (launches: epilogue "
+                          f"{n['epi']}, conv stage {n['conv']})")
+                    if not same or n["epi"] < 1:
+                        fail(f"CLI {what} --mesh {spec} disagrees or "
+                             "launched no epilogue")
+                    for stage, key in stage_shape.items():
+                        if form == "packed" and stage.startswith("packed") \
+                                and n["shapes"].get(key, 0) < 1:
+                            fail(f"CLI {what} --mesh {spec} launched no "
+                                 f"{stage} stage")
+                    add(n, form)
+        finally:
+            cli._parse_mesh = real_parse
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return got
@@ -1652,6 +2019,21 @@ def main() -> int:
     for form, v in multi["epi"].items():
         epi_launches[form] += v
     for key, v in multi["shapes"].items():
+        shape_launches[key] = shape_launches.get(key, 0) + v
+
+    # 4e. The rest of training on the one card: --precision high, the
+    # mesh's spatial and model axes (gloo ranks on cuda:0), the sharded
+    # whole-image net with a spatial axis, and the CLI's --mesh with the
+    # spatial and model axes; each counted run with the counts set to 0
+    # just before it.
+    axes = mesh_axes_phase(cli, imageio, params, anime, serve["images"],
+                           rng, card, zero_counts, counts, stage_shape,
+                           trained["ref"])
+    for k in launches:
+        launches[k] += axes["launches"][k]
+    for form, v in axes["epi"].items():
+        epi_launches[form] += v
+    for key, v in axes["shapes"].items():
         shape_launches[key] = shape_launches.get(key, 0) + v
 
     # 5. Times at the main path's shapes, in turns.  The trunk's work on a

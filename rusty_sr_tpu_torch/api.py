@@ -82,8 +82,8 @@ def upscale_batch(images, weights: Union[str, dict] = "imagenet",
     compute, so that encoding overlaps the card; with
     ``release_outputs=True`` the returned list holds None for the images
     delivered.  ``mesh`` (`parallel.mesh.make_mesh`) splits each chunk of
-    tiles over its devices in place of ``device``, with the same
-    outputs.  ``device`` as in `upscale`.
+    tiles over its data axis's devices in place of ``device``, with the
+    same outputs.  ``device`` as in `upscale`.
     """
     from rusty_sr_tpu_torch.parallel.tiling import tiled_sr_batch
     tree = _resolve_params(weights, factor)
@@ -133,7 +133,8 @@ def train_folder(folder: str, *, steps: Optional[int] = None,
                  data_workers: Optional[int] = None,
                  checkpoint_every: Optional[int] = None,
                  val_every: Optional[int] = None,
-                 seed: int = 0, device="cuda", group=None) -> dict:
+                 seed: int = 0, device="cuda", group=None,
+                 n_spatial: int = 1, n_model: int = 1) -> dict:
     """Train on an image folder with the reference's protocol; returns the
     final parameters (a numpy tree).
 
@@ -150,15 +151,19 @@ def train_folder(folder: str, *, steps: Optional[int] = None,
     the cadences); ``data_workers`` sizes the crop pool;
     ``checkpoint_every`` and ``val_every`` are the cadences in steps (100
     each, as the CLI's ``--ckpt_every`` and ``--val_every``).  ``device``:
-    'cuda' trains on the card, 'cpu' on the CPU.  ``precision='high'``
-    is not ported.
+    'cuda' trains on the card, 'cpu' on the CPU.  ``precision``: the
+    float32 tiers' convolutions, 'highest' (exact) or 'high' (the
+    three-term bf16 split, `ops.conv.conv2d_bf16x3`).
 
     ``group``: an initialised `torch.distributed` process group to train
-    data-parallel over, this process being one rank on ``device``
-    (`train.loop.train_loop`): each rank reads its stripe of the folder
-    (`train.data.shard_files_for_host`), crops ``batch_size / world`` of
-    each batch from the seed ``seed + rank``, and rank 0 alone validates
-    and writes the files."""
+    over, this process being one rank on ``device`` of a (data,
+    ``n_spatial``, ``n_model``) mesh of its ranks
+    (`train.loop.train_loop`): each data index d reads its stripe of the
+    folder (`train.data.shard_files_for_host`) and crops ``batch_size /
+    n_data`` of each batch from the seed ``seed + d``, the same crops on
+    its spatial and model ranks; rank 0 alone validates and writes the
+    files."""
+    from rusty_sr_tpu_torch.parallel.mesh import grid_coords, rows
     from rusty_sr_tpu_torch.train.data import CropPipeline, list_images
     from rusty_sr_tpu_torch.train.loop import (TrainConfig, train_loop,
                                                world_of)
@@ -166,11 +171,11 @@ def train_folder(folder: str, *, steps: Optional[int] = None,
 
     if trunk not in ("merged", "flat", "packed"):
         raise ValueError(f"trunk must be merged/flat/packed, got {trunk!r}")
-    if precision != "highest":
-        raise ValueError(f"precision={precision!r} is not ported yet to the "
-                         "PyTorch package")
+    if precision not in ("highest", "high"):
+        raise ValueError(f"precision must be 'highest' or 'high', got "
+                         f"{precision!r}")
     cfg = TrainConfig(factor=factor, linear_loss=linear_loss, loss_kind=loss,
-                      amp=amp, trunk=trunk, remat=remat)
+                      amp=amp, trunk=trunk, remat=remat, precision=precision)
     if batch_size is not None:
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
@@ -194,9 +199,13 @@ def train_folder(folder: str, *, steps: Optional[int] = None,
     if isinstance(start, str):
         start_tree = params_lib.load_rsr_file(start, factor)
     rank, world = world_of(group)
-    if cfg.batch_size % world:
+    at = grid_coords(rank, world, n_spatial, n_model)
+    d, n_data = at["data"], at["n_data"]
+    if cfg.batch_size % n_data:
         raise ValueError(f"batch_size {cfg.batch_size} does not divide over "
-                         f"{world} processes")
+                         f"{n_data} data-parallel processes")
+    # ValueError for more spatial shards than the crop has LR rows (pairs)
+    rows(cfg.crop // factor, n_spatial, 0, 2 if trunk == "packed" else 1)
     val_images = None
     if val_folder and rank == 0:
         files = list_images(val_folder, recurse)
@@ -205,10 +214,10 @@ def train_folder(folder: str, *, steps: Optional[int] = None,
         val_images = [load_image_u8(f).astype(np.float32) / 255.0
                       for f in files]
     buf = CropPipeline(folder, recurse=recurse, crop=(cfg.crop, cfg.crop),
-                       batch_size=cfg.batch_size // world, seed=seed + rank,
+                       batch_size=cfg.batch_size // n_data, seed=seed + d,
                        workers=data_workers, out_dtype=np.uint8,
-                       shard_across_hosts=world > 1, process_index=rank,
-                       process_count=world)
+                       shard_across_hosts=n_data > 1, process_index=d,
+                       process_count=n_data)
 
     def batches():
         while True:
@@ -220,6 +229,7 @@ def train_folder(folder: str, *, steps: Optional[int] = None,
                           max_steps=steps, metrics_file=metrics_file,
                           native_ckpt_dir=ckpt_dir, resume_from=resume_from,
                           validate=bool(val_folder), seed=seed,
-                          device=device, group=group)
+                          device=device, group=group, n_spatial=n_spatial,
+                          n_model=n_model)
     finally:
         buf.close()

@@ -10,14 +10,19 @@ which fits new parameters to an image folder.  Each runs on the card
 (``--platform gpu``, the default) or on the CPU (``--platform cpu``: the
 kernels' plain PyTorch versions).
 
-``--mesh data=N`` (or ``N``) runs the data axis of the JAX package's
-mesh: upscale (xla engine), folder and ``watch`` split each chunk of
-tiles over N devices, and ``train`` trains data-parallel on N local
-processes, one per device, over `torch.distributed`.  ``train
---coordinator HOST:PORT --num_processes N --process_id I`` makes this
-process rank I of N (NCCL on the card, gloo on the CPU).  The
-``spatial`` and ``model`` mesh axes and ``train --precision high`` are
-not ported yet and exit with code 2.
+``--mesh data=N[,spatial=S][,model=M]`` (or ``N``) runs the JAX
+package's mesh (`parallel.mesh`): upscale (xla engine), folder and
+``watch`` split each chunk of tiles over the N devices of the data axis
+(a mesh of N*S*M devices; each chunk's tiles run once, on one device per
+data index, where JAX replicates them over the other axes with the same
+result), and ``train`` trains on N*S*M local processes, one per device,
+over `torch.distributed`: the batch split over the data axis, each
+crop's rows over the spatial axis, the parameters and Adam's state
+sharded over the model axis.  ``train --coordinator HOST:PORT
+--num_processes P --process_id I`` makes this process rank I of P (NCCL
+on the card, gloo on the CPU; P must equal N*S*M when ``--mesh`` is
+given).  ``train --precision high`` runs the f32 tiers' convolutions as
+the three-term bf16 split, the JAX package's ``Precision.HIGH``.
 """
 
 from __future__ import annotations
@@ -28,9 +33,6 @@ import sys
 from typing import Optional
 
 import numpy as np
-
-_NOT_PORTED = "is not ported yet to the PyTorch package (rusty-sr runs it)"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -69,9 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "stages with u8 tiles in and out; 'fused', the "
                         "trunk as one CUDA kernel (single images only)")
     p.add_argument("--mesh", metavar="SPEC", default=None,
-                   help="split each chunk of tiles over N devices: 'data=N' "
-                        "or just 'N' (xla engine; on --platform cpu, N "
-                        "replicas on the CPU)")
+                   help="device mesh: 'data=N[,spatial=M][,model=K]' or "
+                        "just 'N'; each chunk of tiles is split over the N "
+                        "devices of the data axis (xla engine; on "
+                        "--platform cpu, entries of the CPU)")
     p.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
                    help="'gpu' (default; needs CUDA) or 'cpu' (the "
                         "kernels' plain PyTorch versions)")
@@ -105,8 +108,9 @@ def build_watch_parser() -> argparse.ArgumentParser:
     w.add_argument("--once", action="store_true",
                    help="process the current folder contents and exit")
     w.add_argument("--mesh", metavar="SPEC", default=None,
-                   help="split each chunk of tiles over N devices: 'data=N' "
-                        "or just 'N'")
+                   help="device mesh: 'data=N[,spatial=M][,model=K]' or "
+                        "just 'N'; each chunk of tiles is split over the N "
+                        "devices of the data axis")
     w.add_argument("--metrics", metavar="FILE", default=None,
                    help="append one JSONL record per processed group "
                         "(images, failures, HR MPix, latency, MPix/s)")
@@ -157,11 +161,13 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "and the step counter — unlike -s/--start, which "
                         "loads bare parameters only")
     t.add_argument("--mesh", metavar="SPEC", default=None,
-                   help="data-parallel training: 'data=N' or 'N'. Without "
-                        "--coordinator, starts N local processes (ranks "
-                        "0..N-1 over 127.0.0.1, one device each: cuda:I "
-                        "mod the device count, or the CPU); with it, N "
-                        "must equal --num_processes")
+                   help="'data=N[,spatial=M][,model=K]' or 'N': the batch "
+                        "split over N, each crop's rows over M, the "
+                        "parameters and optimizer state sharded over K. "
+                        "Without --coordinator, starts N*M*K local "
+                        "processes (ranks over 127.0.0.1, one device each: "
+                        "cuda:I mod the device count, or the CPU); with "
+                        "it, N*M*K must equal --num_processes")
     t.add_argument("--amp", action="store_true",
                    help="mixed-precision training: bf16 convolution "
                         "operands with f32 sums, f32 parameters and "
@@ -173,8 +179,10 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "'packed' (the bf16 2x2 space-to-depth trunk)")
     t.add_argument("--precision", choices=["highest", "high"],
                    default="highest",
-                   help="f32 convolution precision: 'highest' (exact); "
-                        "'high' is not ported yet")
+                   help="f32 convolution precision: 'highest' (exact, "
+                        "the default) or 'high' (each product as three "
+                        "bf16 products, hi*hi + hi*lo + lo*hi, summed in "
+                        "f32); ignored with --amp and --trunk packed")
     t.add_argument("--crop", type=int, default=None, metavar="N",
                    help="HR training crop side (default 192). Must be "
                         "divisible by the factor, and give an even LR crop "
@@ -241,30 +249,21 @@ def _parse_mesh(spec_str: str, device):
     from rusty_sr_tpu_torch.parallel.mesh import make_mesh
     axes = _parse_mesh_spec(spec_str)
     device = torch.device(device)
-    devices = [device] * axes["data"] if device.type == "cpu" else None
+    devices = [device] * (axes["data"] * axes["spatial"] * axes["model"]) \
+        if device.type == "cpu" else None
     return make_mesh(axes["data"], axes["spatial"], axes["model"],
                      devices=devices)
 
 
 def _refused(args) -> Optional[int]:
-    """Exit code 2, after saying why, for a malformed ``--mesh`` or a
-    flag the port cannot run yet (the mesh's spatial and model axes,
-    ``--precision high``); None otherwise."""
+    """Exit code 2, after saying why, for a malformed ``--mesh`` spec;
+    None otherwise."""
     if args.mesh:
         try:
-            axes = _parse_mesh_spec(args.mesh)
+            _parse_mesh_spec(args.mesh)
         except ValueError as e:
             print(f"error: bad --mesh {args.mesh!r}: {e}", file=sys.stderr)
             return 2
-        other = [f"{k}={v}" for k, v in axes.items() if k != "data" and v > 1]
-        if other:
-            print(f"error: --mesh {','.join(other)} {_NOT_PORTED}; the "
-                  "port runs the data axis only", file=sys.stderr)
-            return 2
-    if getattr(args, "precision", "highest") != "highest":
-        print(f"error: --precision {args.precision} {_NOT_PORTED}",
-              file=sys.stderr)
-        return 2
     return None
 
 
@@ -820,8 +819,8 @@ def run_watch(args) -> int:
 def run_train(args) -> int:
     """The ``train`` command: the reference's protocol on a folder, with
     checkpoints to PARAMETER_FILE (and ``--ckpt_dir``), on one device,
-    or data-parallel over processes (`_train_local_ranks` for ``--mesh
-    data=N``; this process one rank with ``--coordinator``)."""
+    or over a mesh of processes (`_train_local_ranks` for ``--mesh``;
+    this process one rank with ``--coordinator``)."""
     from rusty_sr_tpu_torch.train.loop import TrainConfig
 
     if args.val_max is not None and not args.val_folder:
@@ -852,17 +851,19 @@ def run_train(args) -> int:
         print(f"error: --process_id {args.process_id} is not in [0, "
               f"{args.num_processes})", file=sys.stderr)
         return 2
-    n_data = _parse_mesh_spec(args.mesh)["data"] if args.mesh else 1
-    if multi and args.mesh and n_data != args.num_processes:
-        print(f"error: --mesh data={n_data} must equal --num_processes "
-              f"{args.num_processes} (one device a process)",
-              file=sys.stderr)
+    axes = _parse_mesh_spec(args.mesh) if args.mesh else \
+        {"data": args.num_processes if multi else 1, "spatial": 1,
+         "model": 1}
+    world = axes["data"] * axes["spatial"] * axes["model"]
+    if multi and world != args.num_processes:
+        print(f"error: --mesh {args.mesh} is {world} processes and must "
+              f"equal --num_processes {args.num_processes} (one device a "
+              f"process)", file=sys.stderr)
         return 2
-    world = args.num_processes if multi else n_data
 
     cfg = TrainConfig(factor=args.factor, linear_loss=args.linear_loss,
                       loss_kind=args.loss, amp=args.amp, trunk=args.trunk,
-                      remat=args.remat)
+                      remat=args.remat, precision=args.precision)
     for flag, arg_v, attr in (("--ckpt_every", args.ckpt_every,
                                "checkpoint_every"),
                               ("--val_every", args.val_every, "val_every"),
@@ -892,9 +893,16 @@ def run_train(args) -> int:
                   f"{args.crop // cfg.factor}, odd)", file=sys.stderr)
             return 2
         cfg.crop = args.crop
-    if cfg.batch_size % world:
+    if cfg.batch_size % axes["data"]:
         print(f"error: batch size {cfg.batch_size} does not divide over "
-              f"{world} processes (use --batch)", file=sys.stderr)
+              f"{axes['data']} processes (use --batch)", file=sys.stderr)
+        return 2
+    pair = 2 if cfg.trunk == "packed" else 1
+    if axes["spatial"] > cfg.crop // cfg.factor // pair:
+        print(f"error: --mesh spatial={axes['spatial']} is more shards "
+              f"than the crop's {cfg.crop // cfg.factor // pair} LR "
+              + ("row pairs" if pair > 1 else "rows") + " (use --crop)",
+              file=sys.stderr)
         return 2
     device = device_for(args.platform)
     if world > 1 and not multi:
@@ -914,17 +922,18 @@ def run_train(args) -> int:
             world_size=args.num_processes, rank=args.process_id)
         group = dist.group.WORLD
     try:
-        return _train(args, cfg, resume_from, device, group)
+        return _train(args, cfg, resume_from, device, group, axes)
     finally:
         if group is not None:
             dist.destroy_process_group()
 
 
 def _train_local_ranks(args, world: int) -> int:
-    """``train --mesh data=N`` without the multi-process flags: N spawned
-    processes, ranks 0..N-1 of a group over 127.0.0.1, each running this
-    command's `train` on its own device.  Returns the first failing
-    rank's exit code (the others are then stopped), or 0."""
+    """``train --mesh`` without the multi-process flags: one spawned
+    process per mesh device, ranks 0..world-1 of a group over 127.0.0.1,
+    each running this command's `train` on its own device.  Returns the
+    first failing rank's exit code (the others are then stopped), or
+    0."""
     import multiprocessing
     import multiprocessing.connection
     import socket
@@ -936,7 +945,6 @@ def _train_local_ranks(args, world: int) -> int:
     procs = []
     for rank in range(world):
         rank_args = argparse.Namespace(**vars(args))
-        rank_args.mesh = None
         rank_args.coordinator = f"127.0.0.1:{port}"
         rank_args.num_processes, rank_args.process_id = world, rank
         procs.append(ctx.Process(target=_train_rank, args=(rank_args,)))
@@ -963,15 +971,19 @@ def _train_rank(args) -> None:
     sys.exit(run_train(args))
 
 
-def _train(args, cfg, resume_from, device, group) -> int:
+def _train(args, cfg, resume_from, device, group, axes) -> int:
     """`run_train` once its flags are checked: ``device`` is this
-    process's, ``group`` the initialised process group or None."""
+    process's, ``group`` the initialised process group or None, ``axes``
+    the mesh's sizes."""
     from rusty_sr_tpu_torch import params as params_lib
+    from rusty_sr_tpu_torch.parallel.mesh import grid_coords
     from rusty_sr_tpu_torch.train.data import CropPipeline, list_images
     from rusty_sr_tpu_torch.train.loop import train_loop, world_of
     from rusty_sr_tpu_torch.utils.imageio import DECODE_ERRORS, load_image_u8
 
     rank, world = world_of(group)
+    at = grid_coords(rank, world, axes["spatial"], axes["model"])
+    d, n_data = at["data"], at["n_data"]
 
     start = None
     if args.start:
@@ -997,15 +1009,16 @@ def _train(args, cfg, resume_from, device, group) -> int:
             print(f"error: validation image: {e}", file=sys.stderr)
             return 1
     try:
-        # Each rank reads its stripe of the folder and crops its share
-        # of every batch from the seed of its rank, as the JAX package
-        # seeds each process.
+        # Each data index reads its stripe of the folder and crops its
+        # share of every batch from the seed of its index, as the JAX
+        # package seeds each process; the spatial and model ranks of a
+        # data index crop the same images.
         buf = CropPipeline(args.TRAINING_FOLDER, recurse=args.recurse,
                            crop=(cfg.crop, cfg.crop),
-                           batch_size=cfg.batch_size // world, seed=rank,
+                           batch_size=cfg.batch_size // n_data, seed=d,
                            workers=args.data_workers, out_dtype=np.uint8,
-                           shard_across_hosts=world > 1, process_index=rank,
-                           process_count=world)
+                           shard_across_hosts=n_data > 1, process_index=d,
+                           process_count=n_data)
     except (ValueError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -1024,7 +1037,8 @@ def _train(args, cfg, resume_from, device, group) -> int:
                    param_file=args.PARAMETER_FILE, val_images=val_images,
                    validate=bool(args.val_folder), max_steps=args.max_steps,
                    metrics_file=args.metrics, native_ckpt_dir=args.ckpt_dir,
-                   resume_from=resume_from, device=device, group=group)
+                   resume_from=resume_from, device=device, group=group,
+                   n_spatial=axes["spatial"], n_model=axes["model"])
     except OSError as e:
         print(f"Could not make parameter file: {e}", file=sys.stderr)
         return 1

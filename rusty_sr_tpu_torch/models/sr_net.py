@@ -31,7 +31,8 @@ from torch import nn
 
 from rusty_sr_tpu_torch.ops.activations import belu
 from rusty_sr_tpu_torch.ops.color import linear_to_srgb, srgb_to_linear
-from rusty_sr_tpu_torch.ops.conv import conv2d_same, conv_split_precise
+from rusty_sr_tpu_torch.ops.conv import (conv2d_bf16x3, conv2d_same,
+                                        conv_split_precise)
 from rusty_sr_tpu_torch.ops.pixel_shuffle import depth_to_space
 from rusty_sr_tpu_torch.ops.resize import (avg_pool, bilinear_phases,
                                            upsample_bilinear)
@@ -186,21 +187,34 @@ def make_lr_from_hr(hr: torch.Tensor, factor: int = 3) -> torch.Tensor:
 TRUNKS = ("merged", "flat", "packed")
 
 
-def forward_fn(trunk: str = "merged", amp: bool = False):
+PRECISIONS = ("highest", "high")
+
+
+def forward_fn(trunk: str = "merged", amp: bool = False,
+               precision: str = "highest"):
     """The training forward ``fn(params, lr, factor) -> sr`` of a trunk:
     "merged" (`sr_apply_fused` over `merge_params`, merged inside the
     step, float32 out), "flat" (`sr_apply`, the literal topology) or
     "packed" (`sr_apply_packed`, bf16 operands whatever ``amp``);
-    ``amp`` runs the first two on bf16 operands."""
+    ``amp`` runs the first two on bf16 operands.  Their float32
+    convolutions are exact for ``precision`` "highest" and the three-term
+    bf16 split for "high" (`ops.conv.conv2d_bf16x3`, the JAX package's
+    ``Precision.HIGH``), which ``amp`` and the packed trunk ignore, as
+    there."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
     cd = torch.bfloat16 if amp else None
+    conv_fn = conv2d_bf16x3 if precision == "high" and not amp else None
     if trunk == "packed":
         return lambda p, x, f: sr_apply_packed(merge_params(p), x, f)
     if trunk == "merged":
         return lambda p, x, f: sr_apply_fused(
-            merge_params(p), x, f, compute_dtype=cd, round_output=False,
-            conv0_split=False)
+            merge_params(p), x, f, compute_dtype=cd, conv_fn=conv_fn,
+            round_output=False, conv0_split=False)
     if trunk == "flat":
-        return lambda p, x, f: sr_apply(p, x, f, compute_dtype=cd)
+        return lambda p, x, f: sr_apply(p, x, f, compute_dtype=cd,
+                                        conv_fn=conv_fn)
     raise ValueError(f"trunk must be one of {TRUNKS}, got {trunk!r}")
 
 
@@ -208,16 +222,17 @@ class SRNet(nn.Module):
     """The network as a module: the 19 reference tensors as parameters
     under their reference names (HWIO convolutions), so `torch.optim`
     works on it directly; ``forward(lr)`` runs the training forward of
-    ``trunk`` (`forward_fn`).  It is built from a parameter tree of
-    `params.py` (numpy or tensors) and gives one back with `tree`."""
+    ``trunk`` at ``precision`` (`forward_fn`).  It is built from a
+    parameter tree of `params.py` (numpy or tensors) and gives one back
+    with `tree`."""
 
     def __init__(self, tree, factor: int = 3, trunk: str = "merged",
-                 amp: bool = False):
+                 amp: bool = False, precision: str = "highest"):
         super().__init__()
         self.factor = factor
         self.trunk = trunk
         self.amp = amp
-        self._fwd = forward_fn(trunk, amp)
+        self._fwd = forward_fn(trunk, amp, precision)
         for k, v in tree.items():
             self.register_parameter(k, nn.Parameter(torch.as_tensor(
                 np.asarray(v, np.float32)).clone()))

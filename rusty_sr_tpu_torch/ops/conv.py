@@ -120,3 +120,65 @@ def conv_split_precise(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     gradient of ``conv2d_same(h.bf16, w.bf16)``, as the JAX op's custom
     VJP is (the split refines the forward value only)."""
     return _SplitPrecise.apply(h, w)
+
+
+def _bf16_3(a: torch.Tensor, b: torch.Tensor, dim_a: int, dim_b: int):
+    """The three-term split of a product's operands, widened along the
+    axis that the product sums over: (a_hi, a_hi, a_lo) along ``dim_a``
+    and (b_hi, b_lo, b_hi) along ``dim_b``, as float32 tensors holding
+    bfloat16 values."""
+    a_hi, a_lo = bf16_split(a)
+    b_hi, b_lo = bf16_split(b)
+    return (torch.cat([a_hi, a_hi, a_lo], dim=dim_a).float(),
+            torch.cat([b_hi, b_lo, b_hi], dim=dim_b).float())
+
+
+class _Bf16x3(torch.autograd.Function):
+    """`conv2d_bf16x3` on NCHW / OIHW operands.  Each product, the forward
+    one and both of the backward pass, is hi*hi + hi*lo + lo*hi of its
+    two operands' bf16 splits, run as one convolution widened threefold
+    along the axis it sums over, under `tf32_on_bf16`."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with tf32_on_bf16():
+            xs, ws = _bf16_3(x, w, 1, 1)
+            return F.conv2d(xs, ws, padding=(w.shape[2] // 2,
+                                             w.shape[3] // 2))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        pad = (w.shape[2] // 2, w.shape[3] // 2)
+        dx = dw = None
+        with tf32_on_bf16():
+            if ctx.needs_input_grad[0]:
+                gs, ws = _bf16_3(g, w, 1, 0)       # sum over the outputs
+                dx = torch.nn.grad.conv2d_input(x.shape, ws, gs,
+                                                padding=pad)
+            if ctx.needs_input_grad[1]:
+                xs, gs = _bf16_3(x, g, 0, 0)       # sum over the batch
+                dw = torch.nn.grad.conv2d_weight(xs, w.shape, gs,
+                                                 padding=pad)
+        return dx, dw
+
+
+def conv2d_bf16x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Same-conv of float32 ``x`` (N,H,W,Cin) and HWIO ``w``, float32 out,
+    at the JAX package's ``Precision.HIGH`` (`train --precision high`):
+    both operands split into bf16 (hi, lo) (`bf16_split`) and the product
+    taken as hi*w_hi + hi*w_lo + lo*w_hi, summed in float32, so the
+    dropped lo*w_lo and the rounding of lo leave about 2^-16 of
+    sum |x||w|.  The backward pass splits its products the same way, as
+    JAX's transpose of a HIGH dot is HIGH: the input gradient from
+    (g_hi, g_lo) x (w_hi, w_lo), the weight gradient from (x_hi, x_lo) x
+    (g_hi, g_lo).  Only these convolutions enter `tf32_on_bf16` (TF32
+    holds bf16 values exactly); the caller's precision stays what it
+    was.  Bit operations and convolutions only: a CUDA graph can hold
+    it."""
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError(f"conv2d_bf16x3 takes float32 operands, not "
+                         f"{x.dtype} and {w.dtype}")
+    y = _Bf16x3.apply(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1)

@@ -674,8 +674,11 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
     reference after the callback, so that slot of the returned list is
     None.
 
-    ``mesh`` (`parallel.mesh.make_mesh`) runs the tiles on its devices in
-    place of ``device``: each step of ``chunk`` tiles a device is split
+    ``mesh`` (`parallel.mesh.make_mesh`) runs the tiles on its data
+    axis's devices (``mesh.lanes``, one per data index: the JAX package
+    replicates each chunk over the spatial and model axes, which computes
+    the same bytes) in place of ``device``: each step of ``chunk`` tiles a
+    device is split
     evenly over them (``chunk`` counts tiles per device, as in the JAX
     package), each device with its own copy of the weights, its own
     pinned slots and copy streams, and its own in-flight window.  A
@@ -693,7 +696,7 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
         imgs = [np.asarray(im, np.float32) for im in imgs]
     if tile < 1:
         raise ValueError(f"tile must be positive, got {tile}")
-    devices = [torch.device(device)] if mesh is None else list(mesh.devices)
+    devices = [torch.device(device)] if mesh is None else list(mesh.lanes)
     chunk = _DEFAULT_CHUNK if chunk is None else chunk
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")

@@ -1,11 +1,13 @@
-"""Image folders and the training feed: `list_images` and `CropPipeline`,
+"""Image folders and the training feed: `list_images`, `CropPipeline`,
+and the reference-shaped `ImageFolderSupplier` and `PrefetchBuffer`,
 copies of `rusty_sr_tpu/train/data.py`'s.
 
 `CropPipeline` is the feed both training entry points use (the CLI's
 ``train`` and `api.train_folder`): a decoded-image cache and a pool of
 crop workers that emits the same batches, byte for byte, for any worker
-count.  The reference-shaped `ImageFolderSupplier` and `PrefetchBuffer`
-of the JAX package are not ported: no training entry point uses them.
+count.  `ImageFolderSupplier` and `PrefetchBuffer` are the reference's
+``ImageFolderSupplier`` and ``Buffer`` pair (one decode per crop on one
+thread), for API users who feed `train.loop.train_loop` themselves.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 
@@ -48,6 +50,163 @@ def shard_files_for_host(files, process_index: int, process_count: int):
         return list(files)
     return [f for i, f in enumerate(files)
             if i % process_count == process_index]
+
+
+class ImageFolderSupplier:
+    """Streams (H,W,3) f32 images, optionally random-cropped: the JAX
+    package's, which crops the same windows from the same seed.
+
+    crop=None mirrors `Cropping::None` (whole image); crop=(h,w) mirrors
+    `Cropping::Random{width,height}` (reference src/main.rs:187,222).
+    Images smaller than the crop are edge-padded up to the crop size.
+    ``shuffle`` suppliers (training) stripe the files over processes by
+    default (``shard_across_hosts``), as `shard_files_for_host` does with
+    ``process_index`` and ``process_count`` (both, or neither: one
+    process); sequential ones (validation) keep every file, so that
+    every process reports the same PSNR.
+    """
+
+    def __init__(self, folder: str, recurse: bool = False,
+                 crop: Optional[tuple] = None, shuffle: bool = True,
+                 seed: int = 0, shard_across_hosts: Optional[bool] = None,
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
+        if (process_index is None) != (process_count is None):
+            # A half-specified pair would stripe with the wrong index or
+            # count: duplicated or starved processes.
+            raise ValueError("pass both process_index and process_count, "
+                             "or neither")
+        self.files = list_images(folder, recurse)
+        if not self.files:
+            raise ValueError(f"no images found in {folder!r}")
+        if shard_across_hosts is None:
+            shard_across_hosts = shuffle
+        if shard_across_hosts and process_count is not None:
+            stripe = shard_files_for_host(self.files, process_index,
+                                          process_count)
+            # a stripe can be empty when processes > files; duplicate
+            # rather than starve the process (training still sees every
+            # file)
+            self.files = stripe if stripe else self.files
+        self.crop = crop
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+
+    def epoch_size(self) -> int:
+        return len(self.files)
+
+    def _crop(self, img: np.ndarray) -> np.ndarray:
+        ch, cw = self.crop
+        h, w, _ = img.shape
+        if h < ch or w < cw:
+            img = np.pad(img, ((0, max(0, ch - h)), (0, max(0, cw - w)),
+                               (0, 0)), mode="edge")
+            h, w, _ = img.shape
+        y = int(self.rng.integers(0, h - ch + 1))
+        x = int(self.rng.integers(0, w - cw + 1))
+        return img[y:y + ch, x:x + cw]
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        while True:
+            order = np.arange(len(self.files))
+            if self.shuffle:
+                self.rng.shuffle(order)
+            yielded = 0
+            for i in order:
+                try:
+                    img = load_image_u8(self.files[i]).astype(
+                        np.float32) / 255.0
+                except DECODE_ERRORS:
+                    continue  # unreadable file: skip, like a decode error
+                yielded += 1
+                yield self._crop(img) if self.crop is not None else img
+            if yielded == 0:
+                # Every file failed to decode: raising beats spinning on
+                # the same broken folder forever.
+                raise RuntimeError(
+                    f"none of the {len(self.files)} image files in the "
+                    "folder could be decoded")
+            if not self.shuffle:
+                return  # a sequential supplier is one epoch (validation)
+
+
+class PrefetchBuffer:
+    """Background-thread prefetch of batched crops (the reference's
+    ``Buffer``, src/main.rs:188: depth 128 for training)."""
+
+    def __init__(self, supplier: ImageFolderSupplier, depth: int = 128,
+                 batch_size: int = 1):
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self.supplier = supplier
+        self.batch_size = batch_size
+        self.q: "queue.Queue[np.ndarray]" = queue.Queue(
+            maxsize=max(1, depth // batch_size))
+        self._error: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Blocking put that honours close(); False if stopped first."""
+        while not self._stop.is_set():
+            try:
+                self.q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _worker(self):
+        batch = []
+        try:
+            for img in iter(self.supplier):
+                if self._stop.is_set():
+                    return
+                batch.append(img)
+                if len(batch) == self.batch_size:
+                    arr = np.stack(batch)
+                    batch = []
+                    if not self._put(arr):
+                        return
+        except BaseException as e:  # noqa: B036 — any worker crash
+            # (an unreadable folder, unstackable shapes) and
+            # BaseExceptions (SystemExit from a hook, a signal landing on
+            # this thread) must reach the consumer: a swallowed one would
+            # read as a clean end of the stream and cut training short.
+            self._error = e
+        # The end-of-stream sentinel (sequential suppliers, or an error),
+        # with the same stop-aware put, so shutdown never wedges on a full
+        # queue.  A final partial batch is dropped: the training step
+        # takes one batch shape.
+        self._put(None)
+
+    def next_batch(self) -> Optional[np.ndarray]:
+        """The next batch, or None at the end of the stream or after
+        close().  A supplier's error (e.g. an unreadable training folder)
+        is raised again here, on the consumer's thread."""
+        while not self._stop.is_set():
+            try:
+                item = self.q.get(timeout=0.5)
+            except queue.Empty:
+                if not self._thread.is_alive():
+                    # Between the Empty and this liveness check the worker
+                    # may have queued its last batch (and the sentinel)
+                    # and exited: drain before concluding the stream
+                    # ended, or real batches are dropped.
+                    try:
+                        item = self.q.get_nowait()
+                    except queue.Empty:
+                        item = None  # the worker died without a sentinel
+                else:
+                    continue
+            if item is None and self._error is not None:
+                raise self._error
+            return item
+        return None
+
+    def close(self):
+        self._stop.set()
 
 
 class CropPipeline:

@@ -745,3 +745,87 @@ def test_cuda_train_folder_runs_and_validates_on_the_card(cuda_device,
     recs = [json.loads(ln) for ln in open(mf)]
     assert [r_["step"] for r_ in recs] == [1, 2, 4] * 3
     assert all(np.isfinite(r_["val_psnr"]) for r_ in recs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,ci,co", [(5, 3, 32), (3, 32, 96), (3, 32, 27)])
+def test_cuda_split_conv_within_2e16_of_float64(cuda_device, k, ci, co):
+    """`ops.conv.conv2d_bf16x3` (``--precision high``) on the card: the
+    output and both gradients within 2^-16 of sum |a||b| of float64 on
+    the CPU (cuDNN under TF32 holds the bf16 halves exactly; a Winograd
+    or FFT algorithm that transformed them would not)."""
+    from rusty_sr_tpu_torch.ops.conv import conv2d_bf16x3, conv2d_same
+    r = np.random.default_rng(k * ci)
+    x = torch.tensor(r.standard_normal((4, 48, 48, ci)), dtype=torch.float32)
+    w = torch.tensor(r.standard_normal((k, k, ci, co)) * 0.1,
+                     dtype=torch.float32)
+    g = torch.tensor(r.standard_normal((4, 48, 48, co)), dtype=torch.float32)
+    xs = x.to(cuda_device).requires_grad_()
+    ws = w.to(cuda_device).requires_grad_()
+    y = conv2d_bf16x3(xs, ws)
+    got = (y, *torch.autograd.grad(y, (xs, ws), g.to(cuda_device)))
+
+    def float64(a, b, gy):
+        a, b = (t.double().requires_grad_() for t in (a, b))
+        y64 = conv2d_same(a, b)
+        return (y64, *torch.autograd.grad(y64, (a, b), gy.double()))
+    refs = (float64(x, w, g), float64(x.abs(), w.abs(), g.abs()))
+    for name, t, want, scale in zip(("y", "dx", "dw"), got, *refs):
+        err = (t.detach().double().cpu() - want).abs()
+        assert bool((err <= 2.0 ** -16 * scale).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trunk", ["merged", "flat"])
+def test_cuda_graphed_high_step_matches_eager(cuda_device, trunk):
+    """``--precision high``'s CUDA graph against its eager step over 8
+    steps, to the bounds of `test_cuda_graphed_step_matches_eager`; and
+    its first gradient within 1e-4 of each leaf's largest magnitude of a
+    float64 step on the CPU."""
+    from rusty_sr_tpu_torch.train import loop as TL
+    tree = init_params(4, 3)
+    r = np.random.default_rng(7)
+    xs = [torch.from_numpy(r.integers(0, 256, (2, 48, 48, 3),
+                                      dtype=np.uint8)).to(cuda_device)
+          for _ in range(8)]
+    cfg = TL.TrainConfig(crop=48, trunk=trunk, precision="high")
+    runs = []
+    for graphed in (False, True):
+        p = {k: torch.tensor(v, device=cuda_device, requires_grad=True)
+             for k, v in tree.items()}
+        if graphed:
+            step, _ = TL.make_train_step(cfg, p)
+            assert isinstance(step, TL.GraphedStep)
+        else:
+            opt = TL.make_optimizer(cfg, p)
+
+            def step(hr, p=p, opt=opt):
+                return TL.train_step(p, opt, hr, cfg)
+        losses = []
+        for x in xs:
+            losses.append(float(step(x)[0]))
+            if len(losses) == 1:
+                grad = {k: v.grad.double().cpu().numpy()
+                        for k, v in p.items()}
+        runs.append((losses, grad, {k: v.detach().cpu().numpy()
+                                    for k, v in p.items()}))
+    (l_e, g_e, p_e), (l_g, g_g, p_g) = runs
+    np.testing.assert_allclose(l_g, l_e, rtol=1e-3)
+    for k in tree:
+        np.testing.assert_allclose(p_g[k], p_e[k], rtol=0, atol=1e-4,
+                                   err_msg=k)
+    p64 = {k: torch.tensor(v, dtype=torch.float64, requires_grad=True)
+           for k, v in tree.items()}
+    x64 = (xs[0].cpu().float() * (1.0 / 255.0)).double()
+    from rusty_sr_tpu_torch.models import sr_net
+    from rusty_sr_tpu_torch.ops.conv import conv2d_same
+    saved = sr_net.conv2d_bf16x3
+    sr_net.conv2d_bf16x3 = conv2d_same
+    try:
+        loss64, _ = TL.loss_fn(p64, x64, cfg)
+    finally:
+        sr_net.conv2d_bf16x3 = saved
+    g64 = torch.autograd.grad(loss64, list(p64.values()))
+    for (k, want) in zip(p64, g64):
+        scale = float(want.abs().max())
+        assert float(np.abs(g_g[k] - want.numpy()).max()) <= 1e-4 * scale, k

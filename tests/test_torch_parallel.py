@@ -131,9 +131,15 @@ def test_make_mesh_contract():
         make_mesh(n_data=3, devices=["cpu", "cpu"])   # over-subscribed
     with pytest.raises(ValueError, match="devices"):
         make_mesh(n_data=0, devices=["cpu"])
-    for kw in ({"n_spatial": 2}, {"n_model": 2}):
-        with pytest.raises(ValueError, match="not ported"):
-            make_mesh(1, devices=["cpu"] * 4, **kw)
+    for kw, shape in (({"n_spatial": 2}, (1, 2, 1)),
+                      ({"n_model": 2}, (1, 1, 2))):
+        m = make_mesh(1, devices=["cpu"] * 4, **kw)
+        assert tuple(m.shape.values()) == shape and len(m.devices) == 2
+        assert m.lanes == (torch.device("cpu"),)
+    m = make_mesh(n_spatial=2, n_model=2, devices=["cpu"] * 9)
+    assert m.shape == {"data": 2, "spatial": 2, "model": 2}
+    with pytest.raises(ValueError, match="devices"):
+        make_mesh(2, n_spatial=3, devices=["cpu"] * 5)
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="no CUDA device"):
             make_mesh(1)

@@ -300,19 +300,24 @@ def test_folder_unreadable_only_and_bomb(tmp_path, capsys):
         assert sorted(os.listdir(out)) == ["good.png"]
 
 
-@pytest.mark.parametrize("argv", [
-    ["--mesh", "data=1,spatial=2", "DIR", "OUT"],
-    ["watch", "--mesh", "data=1,model=2", "DIR", "OUT"],
-    ["train", "--mesh", "data=2,model=2", "w.rsr", "DIR"],
-    ["--platform", "cpu", "--engine", "fused", "-p", "anime", "DIR", "OUT"]],
+# Every --mesh spec runs (tests/test_torch_mesh_cli.py); what still
+# exits 2: a mesh with the fused engine, a malformed spec, a batch the
+# data axis cannot split, a fused folder.
+@pytest.mark.parametrize("argv,msg", [
+    (["--mesh", "data=1,spatial=2", "--engine", "fused", "-p", "anime",
+      "DIR", "OUT"], "'xla' engine"),
+    (["watch", "--mesh", "data=1,model=0", "DIR", "OUT"], "bad --mesh"),
+    (["train", "--mesh", "data=2,model=2", "--batch", "3", "w.rsr", "DIR"],
+     "does not divide"),
+    (["--platform", "cpu", "--engine", "fused", "-p", "anime", "DIR", "OUT"],
+     "--engine xla only")],
     ids=["folder-mesh", "watch-mesh", "train", "folder-fused"])
-def test_refused_paths_exit_2(argv, tmp_path, capsys):
+def test_refused_paths_exit_2(argv, msg, tmp_path, capsys):
     save_image_u8(str(tmp_path / "a.png"), u8_image((5, 5), 0))
     argv = [str(tmp_path) if a == "DIR" else
             str(tmp_path / "o") if a == "OUT" else a for a in argv]
     assert cli.main(argv) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err or "--engine xla only" in err
+    assert msg in capsys.readouterr().err
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -236,19 +236,24 @@ def test_cli_custom_weights_equal_builtin(lr_png, tmp_path):
     assert (tmp_path / "p.png").read_bytes() == (tmp_path / "c.png").read_bytes()
 
 
-# --mesh runs its data axis on every path; its spatial and model axes
-# still exit 2 (tests/test_torch_serving.py and
-# tests/test_torch_train_loop.py test them too).
-@pytest.mark.parametrize("argv", [
-    ["--mesh", "data=2,spatial=2", "IN", "OUT"],
-    ["--mesh", "data=1,model=2", "DIR", "OUT"],
-    ["train", "--mesh", "data=2,spatial=2", "w.rsr", "DIR"],
-    ["watch", "--mesh", "data=1,spatial=4", "DIR", "OUT"]],
+# --mesh runs every axis on every path the JAX CLI takes it on
+# (tests/test_torch_mesh_cli.py); what still exits 2, as in JAX or for
+# the devices: a mesh with the fused engine or the simple modes, a
+# process count other than the mesh's, a malformed spec.
+@pytest.mark.parametrize("argv,msg", [
+    (["--mesh", "data=2,spatial=2", "--engine", "fused", "IN", "OUT"],
+     "'xla' engine"),
+    (["--mesh", "data=1,model=2", "-p", "bilinear", "DIR", "OUT"],
+     "bilinear/downsample"),
+    (["train", "--mesh", "data=2,spatial=2", "--coordinator", "h:1",
+      "--num_processes", "2", "--process_id", "0", "w.rsr", "DIR"],
+     "must equal --num_processes"),
+    (["watch", "--mesh", "data=1,spatial=0", "DIR", "OUT"], "bad --mesh")],
     ids=["mesh", "folder", "train", "watch"])
-def test_cli_unported_paths_exit_2(argv, tmp_path, capsys):
+def test_cli_unported_paths_exit_2(argv, msg, tmp_path, capsys):
     argv = [str(tmp_path) if a == "DIR" else a for a in argv]
     assert cli.main(argv) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert msg in capsys.readouterr().err
 
 
 def test_cli_conflicts_and_bad_files(lr_png, tmp_path, capsys):

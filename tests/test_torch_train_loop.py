@@ -291,14 +291,18 @@ def test_cli_bad_flags_match_jax(folder, tmp_path, capsys, flags, msg):
     assert capsys.readouterr().err == ours
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh", "data=2,model=2"], ["--precision", "high"],
-    ["--coordinator", "h:1", "--num_processes", "2", "--process_id", "0",
-     "--mesh", "data=2,spatial=2"]],
+# Every flag value of the JAX CLI's train runs; what exits 2 is a mesh
+# the crop or the processes cannot hold.
+@pytest.mark.parametrize("flags,msg", [
+    (["--mesh", "data=2,spatial=9", "--crop", "24"], "more shards"),
+    (["--precision", "high", "--trunk", "packed", "--crop", "24", "--mesh",
+      "data=1,spatial=5"], "LR row pairs"),
+    (["--coordinator", "h:1", "--num_processes", "2", "--process_id", "0",
+      "--mesh", "data=2,spatial=2"], "must equal --num_processes")],
     ids=["mesh", "precision-high", "multi-host"])
-def test_cli_unported_train_flags_exit_2(folder, capsys, flags):
+def test_cli_unported_train_flags_exit_2(folder, capsys, flags, msg):
     assert cli.main(["train", *flags, "w.rsr", folder]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert msg in capsys.readouterr().err
 
 
 def test_cli_start_errors(folder, tmp_path, capsys):
@@ -332,8 +336,10 @@ def test_api_train_folder(folder, tmp_path):
     recs = [json.loads(ln) for ln in open(mf)]
     assert [r["step"] for r in recs] == [1, 2]
     assert all("val_psnr" in r for r in recs)
-    with pytest.raises(ValueError, match="not ported"):
-        api.train_folder(folder, steps=1, precision="high", device="cpu")
+    with pytest.raises(ValueError, match="precision"):
+        api.train_folder(folder, steps=1, precision="low", device="cpu")
+    with pytest.raises(ValueError, match="do not make a mesh"):
+        api.train_folder(folder, steps=1, n_spatial=2, device="cpu")
     with pytest.raises(ValueError, match="val_every"):
         api.train_folder(folder, steps=1, val_every=0, device="cpu")
     with pytest.raises(ValueError, match="even LR crop"):
