@@ -89,6 +89,21 @@ Phases, each fatal on failure:
    1e-4 of one process's step on the global batch; rank 0's validation
    launched the epilogue's f32 form); the ms/step of each run, printed
    as a wiring check, not scaling;
+4e. the rest of training (`mesh_axes_phase`): ``--precision high``
+   against float64 and timed beside f32 and ``--amp``, gloo ranks on
+   (1,2,1), (1,1,2) and (1,2,2) meshes on cuda:0 against one process,
+   the sharded whole-image net, the CLI with the spatial and model axes;
+4f. the variants (`variants_phase`): `tiled_sr` on the CLI image with
+   ``trunk="flat"``, ``conv0_s2d=False``, ``conv0_ws=False`` (also at
+   tile 241), ``out16=False`` and ``"bcd"``, the fused engine with
+   ``packed=`` and ``engine="int8"`` (u8 and f32), each with the counts
+   set to 0 before it, against its run through the plain versions (4
+   codes fast, 1 exact and int8, ``packed=`` byte-identical to the call
+   without it) and the exact tier (45 dB and 8 codes; int8 50 dB); a
+   24-tile chunk of each timed by `utils.profiling.device_timer` in turns
+   with the packed and default flat tiers; ``torch._int_mm`` at the int8
+   stages' shapes bit-identical to the plain integer product, timed
+   beside it and its bound (a JSON line ``{"int8_products": ...}``);
 5. time each kernel, its plain version and, where one exists, the one
    PyTorch call for the same function (cuDNN's bf16 conv for the conv
    stage) with CUDA events, in turns, beside its bound (the larger of
@@ -107,9 +122,8 @@ Phases, each fatal on failure:
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel (the conv stage once per stage of each fast tier) with
-its launches (summed over the CLI, serving, training and multi-device
-paths above),
-error, times and bound.
+its launches (summed over the CLI, serving, training, multi-device and
+variants paths above), error, times and bound.
 Without a CUDA device, or outside the repository, it
 exits non-zero and prints no result.
 """
@@ -201,6 +215,7 @@ def time_in_turns(plain, kernel, library=None):
 
 # The card's published peaks (NVIDIA H100 SXM at 700 W, dense).
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_INT8 = 1979e12       # dense int8 tensor-core operations a second
 
 
 def bound(flops, nbytes, peak=PEAK_BF16):
@@ -1485,6 +1500,247 @@ def mesh_axes_phase(cli, imageio, params, anime, images, rng, card,
     return got
 
 
+def variants_phase(tiling, shuffle, trunk, imageio, native, anime, lr,
+                   card, zero_counts, counts):
+    """Phase 4f, `tiled_sr`'s variant knobs and the int8 engine on the CLI
+    image (1024x768, u8, anime, tile 242, one chunk of 24): each
+    configuration through `tiled_sr` with the counts set to 0 just before
+    it (the kernels of its path launched), against the same call through
+    the plain versions (fast: 4 codes; exact and int8: 1; ``packed=``:
+    byte-identical to the call without it) and against the exact tier
+    (fast: 45 dB and 8 codes; int8: 50 dB); then each configuration's
+    24-tile chunk timed by `utils.profiling.device_timer` in turns with
+    the packed tier and the default flat tier, and ``torch._int_mm``
+    against the plain integer product at the int8 stages' shapes
+    (bit-identical; bound: the bytes, or the operations at the card's
+    dense int8 peak).  Returns the launches, as phase 4d's, the chunk
+    times and the int8 products' rows."""
+    import contextlib
+    import torch
+    from rusty_sr_tpu_torch.models import quant
+    from rusty_sr_tpu_torch.ops.cuda import conv_stage
+    from rusty_sr_tpu_torch.utils.profiling import device_timer
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    tile, chunk, h = 242, 24, tiling.HALO
+    got = {"launches": {"f32": 0, "bf16": 0, "d2s": 0, "epi": 0, "conv": 0},
+           "epi": {"xla u8": 0, "fused": 0, "xla f32": 0}, "shapes": {},
+           "int8": 0}
+    img = lr.astype(np.float32) / 255.0
+    exact = {"u8": tiling.tiled_sr(anime, lr, 3, tile=tile, chunk=chunk,
+                                   device=dev),
+             "f32": tiling.tiled_sr(anime, img, 3, tile=tile, chunk=chunk,
+                                    device=dev)}
+
+    @contextlib.contextmanager
+    def plain_versions():
+        swaps = [(tiling, "conv_stage", conv_stage.conv_stage_reference),
+                 (tiling, "epilogue_cuda", shuffle.epilogue_reference),
+                 (tiling, "fused_trunk", trunk.fused_trunk_reference),
+                 (quant, "conv_stage", conv_stage.conv_stage_reference),
+                 (quant, "int8_mm", quant.int8_mm_reference)]
+        saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+        for m, n, f in swaps:
+            setattr(m, n, f)
+        try:
+            yield
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+
+    def as_u8(x):
+        return x.astype(np.int16) if x.dtype == np.uint8 else \
+            np.floor(np.clip(x, 0, 1) * 255.0 + 0.5).astype(np.int16)
+
+    fused_pk = {cd: trunk.pack_trunk_weights(tiling.trunk_params(anime), 3,
+                                             cd)
+                for cd in (torch.float32, bf)}
+    # name -> (image kind, tiled_sr keywords, kernels that must launch,
+    # bound vs the plain run, class vs exact: "bf16" or "int8")
+    configs = {
+        "flat": ("u8", dict(compute_dtype=bf, trunk="flat"),
+                 ("conv", "epi"), 4, "bf16"),
+        "flat conv0_s2d=False": ("u8", dict(compute_dtype=bf, trunk="flat",
+                                            conv0_s2d=False),
+                                 ("conv", "epi"), 4, "bf16"),
+        "flat conv0_ws=False": ("u8", dict(compute_dtype=bf, trunk="flat",
+                                           conv0_ws=False),
+                                ("conv", "epi"), 4, "bf16"),
+        "odd tile conv0_ws=False": ("u8", dict(compute_dtype=bf,
+                                               tile=tile - 1, conv0_ws=False),
+                                    ("conv", "epi"), 4, "bf16"),
+        "flat out16=False": ("u8", dict(compute_dtype=bf, trunk="flat",
+                                        out16=False),
+                             ("conv", "epi"), 4, "bf16"),
+        "flat out16='bcd'": ("u8", dict(compute_dtype=bf, trunk="flat",
+                                        out16="bcd"),
+                             ("conv", "epi"), 4, "bf16"),
+        "fused packed= exact": ("f32", dict(engine="fused",
+                                            packed=fused_pk[torch.float32]),
+                                ("f32", "epi"), 1, None),
+        "fused packed= fast": ("f32", dict(engine="fused", compute_dtype=bf,
+                                           packed=fused_pk[bf]),
+                               ("bf16", "epi"), 4, "bf16"),
+        "int8 u8": ("u8", dict(engine="int8"), ("int8", "conv", "epi"), 1,
+                    "int8"),
+        "int8 f32": ("f32", dict(engine="int8"), ("int8", "conv", "epi"), 1,
+                     "int8")}
+    flat_s2d_shapes = {(3, 24, 128), (3, 16, 128)}
+    for name, (kind, kw, must, code_bound, cls) in configs.items():
+        src = lr if kind == "u8" else img
+        zero_counts()
+        quant.LAUNCHES = 0
+        kw = {"tile": tile, "chunk": chunk, **kw}
+        out = tiling.tiled_sr(anime, src, 3, device=dev, **kw)
+        n = counts()
+        n["int8"] = quant.LAUNCHES
+        for k in must:
+            if n[k] < 1:
+                fail(f"variants, {name}: launched no {k} kernel")
+        if kw.get("trunk") == "flat" and kw.get("conv0_s2d", True) and \
+                not any(n["shapes"].get(sh, 0) for sh in flat_s2d_shapes):
+            fail(f"variants, {name}: the space-to-depth conv0 stage did "
+                 "not launch")
+        form = ("fused" if kw.get("engine") == "fused" else
+                "xla u8" if kind == "u8" else "xla f32")
+        for k in got["launches"]:
+            got["launches"][k] += n[k]
+        got["epi"][form] += n["epi"]
+        got["int8"] += n["int8"]
+        for key, v in n["shapes"].items():
+            got["shapes"][key] = got["shapes"].get(key, 0) + v
+        with plain_versions():
+            plain = tiling.tiled_sr(anime, src, 3, device=dev, **kw)
+        worst = int(np.abs(as_u8(out) - as_u8(plain)).max())
+        line = (f"variants, {name}: launches: conv stage {n['conv']}, "
+                f"epilogue {n['epi']}, trunk f32/bf16 {n['f32']}/{n['bf16']},"
+                f" torch._int_mm {n['int8']}; vs the plain versions max "
+                f"{worst} u8 codes (bound {code_bound})")
+        if worst > code_bound:
+            fail(f"variants, {name}: {worst} codes from the plain run")
+        if "packed" in kw:
+            again = tiling.tiled_sr(anime, src, 3, device=dev, **{
+                k: v for k, v in kw.items() if k != "packed"})
+            same = again.tobytes() == out.tobytes()
+            line += (f"; {'byte-identical to' if same else 'DIFFERENT from'}"
+                     " the call without packed=")
+            if not same:
+                fail(f"variants, {name}: packed= changed the output")
+        ex = exact[kind]
+        db = imageio.psnr(as_u8(out) / 255.0, as_u8(ex) / 255.0)
+        codes = int(np.abs(as_u8(out) - as_u8(ex)).max())
+        if cls == "bf16":
+            ok = db >= 45.0 and codes <= 8
+            line += (f"; vs exact {db:.2f} dB, max {codes} codes (bounds 45 "
+                     "dB, 8)")
+        elif cls == "int8":
+            ok = db >= 50.0
+            line += f"; vs exact {db:.2f} dB (bound 50 dB)"
+        else:
+            ok = codes <= 1
+            line += f"; vs the xla exact tier max {codes} codes (bound 1)"
+        print(line + f" ({card})")
+        if not ok or out.shape != (lr.shape[0] * 3, lr.shape[1] * 3, 3):
+            fail(f"variants, {name}: outside its class against exact")
+
+    # One chunk of each configuration, timed in turns with the packed
+    # tier and the default flat tier (an odd tile).
+    t1 = tile - 1
+    nx2, nx1 = -(-lr.shape[1] // tile), -(-lr.shape[1] // t1)
+
+    def chunk_of(image, tl, nx):
+        ny = -(-image.shape[0] // tl)
+        return tuple(torch.from_numpy(np.pad(
+            t, ((0, chunk - t.shape[0]),) + ((0, 0),) * 3)).to(dev)
+            for t in native.gather_tiles_range(image, tl, h, nx, 0,
+                                               min(chunk, ny * nx)))
+    ce, co = chunk_of(lr, tile, nx2), chunk_of(lr, t1, nx1)
+    fe = chunk_of(img, tile, nx2)
+    fp = tiling.prepare_stages({k: v.to(dev) for k, v in
+                                tiling.flat_trunk_params(anime, True)
+                                .items()})
+    pp = tiling.prepare_stages({k: v.to(dev) for k, v in
+                                tiling.packed_trunk_params(anime, 3).items()})
+    ny2 = -(-lr.shape[0] // tile)
+    q = {}
+    for kind, image in (("u8", lr), ("f32", img)):
+        idx = np.unique(np.linspace(0, ny2 * nx2 - 1,
+                                    min(chunk, ny2 * nx2)).astype(int))
+        sample = np.concatenate([native.gather_tiles_range(
+            image, tile, h, nx2, i, i + 1)[0] for i in idx])
+        q[kind] = tiling._int8_trunk(tiling.trunk_params(anime), sample,
+                                     kind == "u8", dev)
+    fpk = {cd: {k: v.to(dev) for k, v in pk.items()}
+           for cd, pk in fused_pk.items()}
+
+    def flat(tl, **kw):
+        return lambda t: tiling._tile_kernel(fp, *t, 3, tl, True, True, **kw)
+    timed = {   # name -> (chunk, tile kernel)
+        "packed (the default fast tier)": (
+            ce, lambda t: tiling._tile_kernel_packed(pp, None, t[1], t[2],
+                                                       3, tile)),
+        "odd tile flat (the default flat tier)": (co, flat(t1)),
+        "flat": (ce, flat(tile)),
+        "flat conv0_s2d=False": (ce, flat(tile, conv0_s2d=False)),
+        "flat conv0_ws=False": (ce, flat(tile, conv0_ws=False)),
+        "odd tile conv0_ws=False": (co, flat(t1, conv0_ws=False)),
+        "flat out16=False": (ce, flat(tile, out16=False)),
+        "flat out16='bcd'": (ce, flat(tile, out16="bcd")),
+        "fused packed= exact": (fe, lambda t: tiling._tile_kernel_fused(
+            fpk[torch.float32], *t, 3, tile, torch.float32)),
+        "fused packed= fast": (fe, lambda t: tiling._tile_kernel_fused(
+            fpk[bf], *t, 3, tile, bf)),
+        "int8 u8": (ce, lambda t: tiling._tile_kernel_q8(
+            q["u8"], *t, 3, tile, True)),
+        "int8 f32": (fe, lambda t: tiling._tile_kernel_q8(
+            q["f32"], *t, 3, tile, False))}
+    ms = {k: [] for k in timed}
+    order = list(timed)
+    for name in order + order[::-1]:
+        x, fn = timed[name]
+        ms[name].append(device_timer(fn, x, iters=10, rounds=3,
+                                     fold=lambda y, x0: x0) * 1e3)
+    got["chunk_ms"] = {}
+    for name in order:
+        a, b = ms[name]
+        got["chunk_ms"][name] = (a + b) / 2
+        print(f"variants chunk, {name}, {chunk} tiles of {tile + 2 * h}^2: "
+              f"{(a + b) / 2:.3f} ms "
+              f"(device_timer best of 3 rounds of 10, two turns: {a:.3f} / "
+              f"{b:.3f} ms; {card})")
+
+    # torch._int_mm against the plain integer product at the int8 stages'
+    # shapes: the chunk's patches (24 x 256^2 rows) of convA (K 800, N
+    # 96), convB (288, 96 after padding 91) and convC (288, 64 after 59).
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    m_rows = chunk * (tile + 2 * h) ** 2
+    rows = []
+    for stage, k_, n_ in (("convA", 800, 96), ("convB", 288, 96),
+                          ("convC", 288, 64)):
+        a = torch.randint(-127, 128, (m_rows, k_), generator=gen,
+                          dtype=torch.int8).to(dev)
+        b = torch.randint(-127, 128, (n_, k_), generator=gen,
+                          dtype=torch.int8).to(dev).t()
+        kern = quant.int8_mm(a, b)
+        plain = quant.int8_mm_reference(a, b)
+        same = torch.equal(kern, plain)
+        k_ms, p_ms, _ = time_in_turns(lambda: quant.int8_mm_reference(a, b),
+                                      lambda: quant.int8_mm(a, b))
+        b_ms, b_by = bound(2.0 * m_rows * k_ * n_, nbytes(a, b, kern),
+                           PEAK_INT8)
+        rows.append((stage, same, k_ms, p_ms, b_ms, b_by))
+        print(f"torch._int_mm vs the plain integer product, {stage} "
+              f"({m_rows} x {k_} x {n_}): {'bit-identical' if same else 'DIFFERENT'};"
+              f" _int_mm {k_ms:.3f} ms, plain (float64, exact) {p_ms:.3f} "
+              f"ms, bound {b_ms:.3f} ms ({b_by}; {b_ms / k_ms:.1%} "
+              f"reached) (CUDA events, 2 x 10 calls each; {card})")
+        if not same:
+            fail(f"torch._int_mm differs from the plain product at {stage}")
+        del a, b, kern, plain
+    got["int8_mm"] = rows
+    return got
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1746,7 +2002,11 @@ def main() -> int:
             "flat conv10": (act(p255 + (64,))[..., :n], Fused(
                 fp["conv10_bf16"], Epi(e, fp["expand_bias"], addends=(
                     act(p255 + (96,))[..., 2 * n:],
-                    act(p255 + (64,))[..., n:]), act_dtype=f32)), bf)}
+                    act(p255 + (64,))[..., n:]), act_dtype=f32)), bf),
+            # trunk="flat" with conv0_ws=False on an even side (phase 4f)
+            "s2d conv0, weights rounded once": (
+                act(p128 + (16,), u8=True), Fused(fp["conv0_s2d_bf16"], Epi(
+                    N, fp["f_bias4"], fp["f_belu4"], (), m4)), f32)}
 
     forms = fused_forms()
     fused_err = {}
@@ -2036,6 +2296,17 @@ def main() -> int:
     for key, v in axes["shapes"].items():
         shape_launches[key] = shape_launches.get(key, 0) + v
 
+    # 4f. tiled_sr's variant knobs and the int8 engine on the CLI image;
+    # each counted run with the counts set to 0 just before it.
+    variants = variants_phase(tiling, shuffle, trunk, imageio, native,
+                              anime, lr, card, zero_counts, counts)
+    for k in launches:
+        launches[k] += variants["launches"][k]
+    for form, v in variants["epi"].items():
+        epi_launches[form] += v
+    for key, v in variants["shapes"].items():
+        shape_launches[key] = shape_launches.get(key, 0) + v
+
     # 5. Times at the main path's shapes, in turns.  The trunk's work on a
     # 24 x 256^2 chunk: stage extents 252, 248, 246, 244, 242 (the halo
     # shrinks by each conv's radius); K and N per stage.  Its bound: the
@@ -2323,6 +2594,14 @@ def main() -> int:
             else "scripts/mosaic_probe4.py:49",
             shape_launches.get(stage_shape[name], 0), fused_err[name],
             (k_ms, p_ms), (b_ms, b_by), l_ms))
+    # Not a TPU kernel: the int8 engine's products (the JAX package's XLA
+    # dot_general) on torch._int_mm, with their launches in phase 4f.
+    print(json.dumps({"int8_products": [
+        {"name": f"torch._int_mm {stage}", "replaces":
+         "rusty_sr_tpu/models/quant.py:158", "launches": variants["int8"],
+         "bit_identical": same, "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": b_ms, "bound_by": b_by}
+        for stage, same, k_ms, p_ms, b_ms, b_by in variants["int8_mm"]]}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,14 +35,16 @@ def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
 
     ``weights``: a builtin name ('imagenet', 'imagenetlinear', 'anime'),
     a path to a `.rsr` file, or a parameter tree.  ``engine``: 'xla' (the
-    default; the trunk as conv stages, the u8 path) or 'fused' (the trunk
-    as one kernel).  ``fast`` runs the bf16 tier instead of the exact f32
-    tier.  ``device``: 'cuda' runs the kernels on the card, 'cpu' their
-    plain PyTorch versions.
+    default; the trunk as conv stages, the u8 path), 'fused' (the trunk
+    as one kernel) or 'int8' (the trunk's merged stages on calibrated
+    int8 products; the JAX package's quantisation experiment, which its
+    CLI does not offer either).  ``fast`` runs the bf16 tier instead of
+    the exact f32 tier.  ``device``: 'cuda' runs the kernels on the card,
+    'cpu' their plain PyTorch versions.
 
-    On the xla engine a uint8 image stays uint8 end to end and the result
-    is uint8; elsewhere uint8 pixels are divided by 255 and the result is
-    float32.  Float input must already be finite sRGB in [0, 1], and
+    On the xla and int8 engines a uint8 image stays uint8 end to end and
+    the result is uint8; elsewhere uint8 pixels are divided by 255 and the
+    result is float32.  Float input must already be finite sRGB in [0, 1], and
     anything else raises.
     """
     from rusty_sr_tpu_torch.parallel.tiling import tiled_sr
@@ -50,7 +52,7 @@ def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
     tree = _resolve_params(weights, factor)
     image = np.asarray(image)
     if image.dtype == np.uint8:
-        if engine != "xla":
+        if engine not in ("xla", "int8"):
             image = image.astype(np.float32) / 255.0
     else:
         image = np.asarray(image, np.float32)

@@ -1,8 +1,9 @@
 """Command-line interface: single-image and folder upscale, and watch.
 
-The flags keep the names of `rusty_sr_tpu/cli.py`.  The paths ported so
-far are both engines — xla (the default: u8 tiles in, u8 HR tiles out)
-and fused — in the exact (f32) tier and, with ``--fast``, the bf16 tier;
+The flags keep the names of `rusty_sr_tpu/cli.py`, and the paths are its
+paths: both engines — xla (the default: u8 tiles in, u8 HR tiles out)
+and fused — in the exact (f32) tier and, with ``--fast``, the bf16 tier
+(the int8 engine is the API's alone, as there);
 the ``-p bilinear`` and ``-d`` modes; a folder as the input (every image
 in it upscaled into the output folder, tiles batched across images on
 the xla engine); ``watch``, the resident serving mode; and ``train``,
@@ -15,10 +16,11 @@ package's mesh (`parallel.mesh`): upscale (xla engine), folder and
 ``watch`` split each chunk of tiles over the N devices of the data axis
 (a mesh of N*S*M devices; each chunk's tiles run once, on one device per
 data index, where JAX replicates them over the other axes with the same
-result), and ``train`` trains on N*S*M local processes, one per device,
-over `torch.distributed`: the batch split over the data axis, each
-crop's rows over the spatial axis, the parameters and Adam's state
-sharded over the model axis.  ``train --coordinator HOST:PORT
+result; a single bilinear or downsample image ignores the mesh, as in
+JAX, and says so), and ``train`` trains on N*S*M local processes, one
+per device, over `torch.distributed`: the batch split over the data
+axis, each crop's rows over the spatial axis, the parameters and Adam's
+state sharded over the model axis.  ``train --coordinator HOST:PORT
 --num_processes P --process_id I`` makes this process rank I of P (NCCL
 on the card, gloo on the CPU; P must equal N*S*M when ``--mesh`` is
 given).  ``train --precision high`` runs the f32 tiers' convolutions as
@@ -364,15 +366,22 @@ def run_upscale(args) -> int:
         print("error: --downsample conflicts with --parameters/--custom",
               file=sys.stderr)
         return 2
+    simple = args.downsample or args.parameters == "bilinear"
+    folder = os.path.isdir(args.INPUT_FILE)
+    if args.mesh and simple and not folder:
+        # The JAX CLI takes a single image's simple path before it reads
+        # --mesh: the image runs on one device, whatever the spec.
+        print(f"note: --mesh {args.mesh} is not used: a single bilinear or "
+              "downsample image runs on one device", file=sys.stderr)
+        args.mesh = None
     refused = _refused(args)
     if refused is not None:
         return refused
-    simple = args.downsample or args.parameters == "bilinear"
     if args.mesh and simple:
         # A silent single-device run would hand a user who asked for N
         # devices one.
         print("error: --mesh is not supported for the bilinear/downsample "
-              "paths", file=sys.stderr)
+              "folder paths", file=sys.stderr)
         return 2
     if args.mesh and args.engine != "xla":
         print(f"error: --mesh supports the 'xla' engine only (got "
@@ -382,7 +391,7 @@ def run_upscale(args) -> int:
     mesh, rc = _mesh_arg(args, device)
     if rc is not None:
         return rc
-    if os.path.isdir(args.INPUT_FILE):
+    if folder:
         return _run_upscale_folder(args, device, mesh)
     try:
         check_codec(args.INPUT_FILE)

@@ -14,13 +14,15 @@ Parameters are a dict of HWIO float32 tensors (`params.to_torch`), or
 the `SRNet` module that holds them as `nn.Parameter`s under the same
 names.  Every function here is differentiable with respect to them: the
 weight merging (`merge_params`, a concatenation) and the space-to-depth
-packing (`parallel.tiling.s2d_conv_weights`, a gather) run inside the
-forward pass, so gradients reach the 19 reference tensors.
+packing (`parallel.tiling.s2d_conv_weights`, a selection product) run
+inside the forward pass, so gradients reach the 19 reference tensors.
 
 ``compute_dtype=torch.bfloat16`` rounds each convolution's operands to
-bfloat16 and sums in float32 (`ops.conv.conv2d_same`), as the JAX
+bfloat16 and sums in float32 (`ops.conv.conv2d_bf16`), as the JAX
 package's mixed-precision forms do; the parameters, the bias and BeLU
-arithmetic and the residual sum stay float32.
+arithmetic and the residual sum stay float32.  Its gradients come back
+unrounded: a training step rounds each weight's to bfloat16 once
+(`train.loop.bf16_grad_leaves`), after a mesh's all-reduce.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ from torch import nn
 
 from rusty_sr_tpu_torch.ops.activations import belu
 from rusty_sr_tpu_torch.ops.color import linear_to_srgb, srgb_to_linear
-from rusty_sr_tpu_torch.ops.conv import (conv2d_bf16x3, conv2d_same,
-                                        conv_split_precise)
+from rusty_sr_tpu_torch.ops.conv import (conv2d_bf16, conv2d_bf16x3,
+                                        conv2d_same, conv_split_precise)
 from rusty_sr_tpu_torch.ops.pixel_shuffle import depth_to_space
 from rusty_sr_tpu_torch.ops.resize import (avg_pool, bilinear_phases,
                                            upsample_bilinear)
@@ -43,7 +45,8 @@ def sr_apply(params, x: torch.Tensor, factor: int = 3, *, compute_dtype=None,
     """SR forward pass. x: (N,H,W,3) sRGB f32 in [0,1] -> (N,fH,fW,3).
 
     ``compute_dtype`` optionally runs the convolutions on bf16 operands
-    (float32 sums); ``conv_fn(h, w)`` replaces `conv2d_same`."""
+    (float32 sums, `conv2d_bf16`); ``conv_fn(h, w)`` replaces
+    `conv2d_same` (on the operands cast to ``compute_dtype``)."""
     p = params
     base = upsample_bilinear(x, factor)
     _conv = conv_fn or conv2d_same
@@ -51,6 +54,8 @@ def sr_apply(params, x: torch.Tensor, factor: int = 3, *, compute_dtype=None,
     def cv(h, name):
         w = p[name]
         if compute_dtype is not None:
+            if conv_fn is None and compute_dtype == torch.bfloat16:
+                return conv2d_bf16(h, w)
             w, h = w.to(compute_dtype), h.to(compute_dtype)
         return _conv(h, w)
 
@@ -103,6 +108,8 @@ def sr_apply_fused(mparams, x: torch.Tensor, factor: int = 3, *,
         if compute_dtype is not None:
             if native and conv_fn is None and conv0_split:
                 return conv_split_precise(h, w)
+            if conv_fn is None and compute_dtype == torch.bfloat16:
+                return conv2d_bf16(h, w)
             w, h = w.to(compute_dtype), h.to(compute_dtype)
         return _conv(h, w)
 
@@ -144,7 +151,8 @@ def sr_apply_packed(mparams, x: torch.Tensor, factor: int = 3, *,
         .reshape(N, H // 2, W // 2, 4 * C)
 
     def cv(t, w):
-        return conv2d_same(t.to(cd), w.to(cd))
+        return conv2d_bf16(t, w) if cd == torch.bfloat16 else \
+            conv2d_same(t.to(cd), w.to(cd))
 
     def tl(v):
         return v.repeat(4)

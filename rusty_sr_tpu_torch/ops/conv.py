@@ -90,6 +90,60 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def im2col_patches(xp: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """(N, H+kh-1, W+kw-1, Cin) padded tensor -> (N, H, W, kh*kw*Cin)
+    patches in (row offset, column offset, channel) order, the order of
+    HWIO ``w.reshape(kh*kw*cin, cout)``: `rusty_sr_tpu/ops/conv.py::
+    im2col_patches`, any dtype (the int8 trunk quantises between the pad
+    and the patches)."""
+    n, hp, wp, cin = xp.shape
+    h, wd = hp - (kh - 1), wp - (kw - 1)
+    return torch.cat([xp[:, dy:dy + h, dx:dx + wd, :]
+                      for dy in range(kh) for dx in range(kw)], dim=-1)
+
+
+class _Bf16Conv(torch.autograd.Function):
+    """`conv2d_bf16` on NCHW / OIHW operands of any float type: the
+    convolution of float32 tensors holding their bfloat16 values, and its
+    backward pass as autograd would run it on them (one
+    ``convolution_backward`` on the saved tensors), the gradients given
+    back in the operands' types, unrounded."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xf = x.to(torch.bfloat16).float()
+        wf = w.to(torch.bfloat16).float()
+        ctx.save_for_backward(xf, wf)
+        ctx.types = (x.dtype, w.dtype)
+        with tf32_on_bf16():
+            return F.conv2d(xf, wf, padding=(w.shape[2] // 2, w.shape[3] // 2))
+
+    @staticmethod
+    def backward(ctx, g):
+        xf, wf = ctx.saved_tensors
+        with tf32_on_bf16():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, xf, wf, None, [1, 1], [wf.shape[2] // 2, wf.shape[3] // 2],
+                [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return (None if dx is None else dx.to(ctx.types[0]),
+                None if dw is None else dw.to(ctx.types[1]))
+
+
+def conv2d_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Same-conv of ``x`` (N,H,W,Cin) and HWIO ``w``, both rounded to
+    bfloat16, float32 out: `conv2d_same` on the two casts, the JAX
+    package's bf16 convolution.  Its gradients come back unrounded, in the
+    operands' types (the casts' own gradients would round each to
+    bfloat16): the input gradient, so that a spatial shard's halo rows,
+    whose gradient another rank completes through the weights', carry no
+    rounding that one process would not make; the weight gradient, so
+    that a training step rounds the sum of a weight's gradients once,
+    after a mesh's all-reduce (`train.loop.bf16_grad_leaves`)."""
+    y = _Bf16Conv.apply(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1)
+
+
 class _SplitPrecise(torch.autograd.Function):
     """The three-term split convolution; its gradient is that of the
     plain bfloat16-cast convolution (the JAX op's custom VJP)."""

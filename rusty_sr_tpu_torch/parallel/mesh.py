@@ -223,15 +223,16 @@ def make_sharded_apply(mesh: Mesh, factor: int = 3, compute_dtype=None):
 
 def tiled_sr_sharded(params, image: np.ndarray, mesh: Mesh, factor: int = 3,
                      *, tile: int = 242, chunk: Optional[int] = None,
-                     compute_dtype=None) -> np.ndarray:
+                     compute_dtype=None, out16=None) -> np.ndarray:
     """Overlap-tile inference with each chunk of tiles split over the
     mesh's data axis: `parallel.tiling.tiled_sr_batch(mesh=)` on a
-    one-image batch, so the output is byte-identical to the
-    single-device path.  ``chunk`` counts tiles per device."""
+    one-image batch (``out16`` as there), so the output is
+    byte-identical to the single-device path.  ``chunk`` counts tiles per
+    device."""
     from rusty_sr_tpu_torch.parallel.tiling import tiled_sr_batch
     return tiled_sr_batch(params, [np.asarray(image)], factor, tile=tile,
                           chunk=chunk, compute_dtype=compute_dtype,
-                          mesh=mesh)[0]
+                          out16=out16, mesh=mesh)[0]
 
 
 def grid_coords(rank: int, world: int, n_spatial: int = 1,

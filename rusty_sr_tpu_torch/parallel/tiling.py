@@ -38,10 +38,11 @@ import torch
 from rusty_sr_tpu_torch.ops.activations import belu
 from rusty_sr_tpu_torch.ops.color import linear_to_srgb, srgb_to_linear
 from rusty_sr_tpu_torch.ops.conv import bf16_split, conv2d_same
-from rusty_sr_tpu_torch.ops.cuda.conv_stage import (Epilogue, FusedStage,
-                                                    conv_stage, prepare_stage)
+from rusty_sr_tpu_torch.ops.cuda.conv_stage import (
+    Epilogue, FusedStage, conv_stage, prepare_stage, stage_epilogue_reference)
 from rusty_sr_tpu_torch.ops.cuda.shuffle import (depth_to_space_cuda,
-                                                 epilogue_cuda, quantise_u8)
+                                                 epilogue_cuda, quantise_u8,
+                                                 unpack_s2d)
 from rusty_sr_tpu_torch.ops.cuda.trunk import fused_trunk, pack_trunk_weights
 from rusty_sr_tpu_torch.ops.resize import avg_pool, bilinear_phases_cropped
 from rusty_sr_tpu_torch.utils import native
@@ -115,25 +116,36 @@ def s2d_conv_weights(w: torch.Tensor, blocks) -> torch.Tensor:
     with block-major output channels: for sub-block b (widths ``blocks``,
     summing to co) the packed channel is 4*offset_b + ff*width_b + c_b,
     so every merged-stage slice is one channel range in packed space and
-    per-channel vectors tile as ``v.repeat(4)``.  A gather and a {0,1}
-    mask, so it is differentiable: the gradient of each packed tap flows
-    back to the tap it was taken from (the training trunk
-    `models.sr_net.sr_apply_packed` packs inside the step)."""
+    per-channel vectors tile as ``v.repeat(4)``.  Each live packed tap is
+    a copy of one tap: a {0,1} selection matrix applied as a float64
+    product, so the gradient of a tap sums its copies' in float64, rounded
+    once to the weights' type, the same on every run (the training trunk,
+    `models.sr_net.sr_apply_packed`, packs inside the step).  A dead tap
+    is its clamped source times 0, the JAX package's signed zero."""
     k, _, ci, co = w.shape
     if sum(blocks) != co:
         raise ValueError(f"blocks {list(blocks)} do not sum to {co}")
-    uu, vv, ok, perm = _s2d_index(k, tuple(blocks), w.device)
-    wg = w[uu, vv] * ok.to(w.dtype)[..., None, None]
-    wflat = wg.permute(0, 1, 2, 4, 3, 5).reshape(3, 3, 4 * ci, 4 * co)
+    sel, src, live, perm = _s2d_index(k, tuple(blocks), w.device)
+    wf = w.reshape(k * k, ci * co)
+    wg = torch.where(live[:, None], (sel @ wf.double()).to(w.dtype),
+                     (wf[src] * 0).detach())
+    wflat = wg.reshape(3, 3, 4, 4, ci, co).permute(0, 1, 2, 4, 3, 5) \
+        .reshape(3, 3, 4 * ci, 4 * co)
     return wflat[..., perm].contiguous()
 
 
 @functools.lru_cache(maxsize=None)
 def _s2d_index(k: int, blocks: tuple, device: torch.device):
-    """`s2d_conv_weights`'s gather indices, tap mask and output-channel
-    permutation, made once per device: a training step captured in a CUDA
-    graph may not copy from the host."""
+    """`s2d_conv_weights`' selection matrix (144 packed taps of the
+    3x3x4x4 grid by k*k source taps, float64), each packed tap's clamped
+    source and whether it is live, and the output-channel permutation,
+    made once per device: a training step captured in a CUDA graph may not
+    copy from the host."""
     uu, vv, ok = _s2d_maps_k(k)
+    src = (uu * k + vv).reshape(-1).astype(np.int64)
+    live = ok.reshape(-1) > 0
+    sel = np.zeros((src.size, k * k))
+    sel[np.arange(src.size), src] = live
     co = sum(blocks)
     perm = np.empty(4 * co, np.int64)
     off = 0
@@ -142,8 +154,8 @@ def _s2d_index(k: int, blocks: tuple, device: torch.device):
             for cb in range(wb):
                 perm[4 * off + ff * wb + cb] = ff * co + off + cb
         off += wb
-    return tuple(torch.from_numpy(a).to(device) for a in
-                 (uu.astype(np.int64), vv.astype(np.int64), ok, perm))
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (sel, src, live, perm))
 
 
 def _s2d_conv_weights(w: np.ndarray, blocks) -> np.ndarray:
@@ -223,20 +235,38 @@ def packed_trunk_params(params, factor: int = 3) -> dict:
 def flat_trunk_params(params, fast: bool) -> dict:
     """Weights of `_tile_kernel`: the merged-conv tree in float32, and for
     the fast tier (``fast``) each stage's bf16 weights beside it — convA,
-    convB, convC, conv10 rounded, and conv0 as the JAX package's split
-    forms: ``conv0_u8`` (the u8-exact input, 256/255 folded in, two-term
-    weight split over duplicated input channels) and ``conv0_f32``
-    (three-term split hi*w_hi + hi*w_lo + lo*w_hi), their input channels
-    zero-padded from 6 and 9 to 8 and 16 (the conv-stage kernel reads
-    whole 16-byte channel groups; zero rows add nothing).  CPU tensors."""
+    convB, convC, conv10 rounded, and conv0 in the JAX package's forms:
+    ``conv0_u8`` (the u8-exact input, 256/255 folded in, two-term weight
+    split over duplicated input channels), ``conv0_f32`` (three-term split
+    hi*w_hi + hi*w_lo + lo*w_hi), ``conv0_s2d`` (the u8 form on the 2x2
+    space-to-depth grid of an even side, `packed_trunk_params`' W0) and,
+    for ``conv0_ws=False``, each of the three with its weights rounded to
+    bf16 once (``conv0_u8_bf16``, ``conv0_s2d_bf16``, and
+    ``conv0_f32_bf16``, the weights twice over for the image's [hi, lo]);
+    their input channels are zero-padded to a multiple of 8 (the
+    conv-stage kernel reads whole 16-byte channel groups; zero rows add
+    nothing).  ``f_bias4``/``f_belu4`` tile conv0's vectors for the
+    space-to-depth form.  CPU tensors."""
     p = {k: torch.from_numpy(v) for k, v in _np_tree(params).items()}
     if fast:
-        u_hi, u_lo = bf16_split(p["conv0"] * (256.0 / 255.0))
-        w_hi, w_lo = bf16_split(p["conv0"])
+        bf = torch.bfloat16
+        w0 = p["conv0"]
+        u8w = w0 * (256.0 / 255.0)
+        s2d = torch.from_numpy(_conv0_s2d_weights(u8w.numpy()))
+        u_hi, u_lo = bf16_split(u8w)
+        w_hi, w_lo = bf16_split(w0)
+        s_hi, s_lo = bf16_split(s2d)
         p["conv0_u8"] = _pad_cin(torch.cat([u_hi, u_lo], dim=2), 8)
         p["conv0_f32"] = _pad_cin(torch.cat([w_hi, w_lo, w_hi], dim=2), 16)
+        p["conv0_s2d"] = torch.cat([s_hi, s_lo], dim=2)
+        p["conv0_u8_bf16"] = _pad_cin(u8w.to(bf), 8)
+        p["conv0_f32_bf16"] = _pad_cin(torch.cat([w0, w0], dim=2).to(bf),
+                                       8)
+        p["conv0_s2d_bf16"] = _pad_cin(s2d.to(bf), 16)
+        p["f_bias4"] = p["f_bias"].repeat(4)
+        p["f_belu4"] = p["f_belu"].repeat(4)
         for k in ("convA", "convB", "convC", "conv10"):
-            p[k + "_bf16"] = p[k].to(torch.bfloat16)
+            p[k + "_bf16"] = p[k].to(bf)
     return p
 
 
@@ -246,8 +276,9 @@ def _pad_cin(w: torch.Tensor, cin: int) -> torch.Tensor:
 
 
 # The conv-stage weights of each tier, packed once for the kernel.
-_FLAT_STAGES = ("conv0_u8", "conv0_f32", "convA_bf16", "convB_bf16",
-                "convC_bf16", "conv10_bf16")
+_FLAT_STAGES = ("conv0_u8", "conv0_f32", "conv0_s2d", "conv0_u8_bf16",
+                "conv0_f32_bf16", "conv0_s2d_bf16", "convA_bf16",
+                "convB_bf16", "convC_bf16", "conv10_bf16")
 _PACKED_STAGES = ("W0", "WA", "WB", "WC", "WD")
 
 
@@ -261,21 +292,20 @@ def prepare_stages(tree: dict) -> dict:
 # --- The xla engine's tile kernels ---
 
 def _tile_kernel(params, zero_tiles, edge_tiles, mask_tiles, factor: int,
-                 tile: int, fast: bool = False,
-                 u8_io: bool = False) -> torch.Tensor:
+                 tile: int, fast: bool = False, u8_io: bool = False,
+                 out16=True, conv0_s2d: bool = True,
+                 conv0_ws: bool = True) -> torch.Tensor:
     """(B, T+2h, T+2h, ·) tiles -> (B, f*T, f*T, 3) SR of the tile centres;
     ``params`` from `flat_trunk_params`.
 
-    Exact tier (``fast`` False): every conv in f32 (TF32 off).  Fast tier:
-    every conv on the conv-stage kernel with bf16 operands and f32
-    accumulation; conv0 reads the image through a split (the u8-exact
-    k/256 input with split weights, or, for f32 input, the three-term
-    split of image and weights), and convA..conv10 round their outputs to
-    bf16, which the BeLUs and the final sum read back in f32.  The
-    epilogue kernel crops the halo of ``expand``, adds the LR-space
-    bilinear base, which it computes from the edge tiles (uint8 or f32),
-    and with ``u8_io`` (uint8 tiles in) quantises, so the HR tiles come
-    out uint8."""
+    Exact tier (``fast`` False): every conv in f32 (TF32 off); the knobs
+    change nothing.  Fast tier: every conv on the conv-stage kernel with
+    bf16 operands and f32 accumulation (`_flat_fast_trunk`, which the
+    knobs ``out16``, ``conv0_s2d`` and ``conv0_ws`` steer as in the JAX
+    package's `_tile_kernel`).  The epilogue kernel crops the halo of
+    ``expand``, adds the LR-space bilinear base, which it computes from
+    the edge tiles (uint8 or f32), and with ``u8_io`` (uint8 tiles in)
+    quantises, so the HR tiles come out uint8."""
     h = HALO
     p = params
     zero_u8 = zero_tiles if u8_io else None
@@ -283,7 +313,8 @@ def _tile_kernel(params, zero_tiles, edge_tiles, mask_tiles, factor: int,
         zero_tiles = zero_tiles.float() * (1.0 / 255.0)
         mask_tiles = mask_tiles.float()
     if fast:
-        expand = _flat_fast_trunk(p, zero_tiles, zero_u8, mask_tiles)
+        expand = _flat_fast_trunk(p, zero_tiles, zero_u8, mask_tiles, out16,
+                                  conv0_s2d, conv0_ws)
     else:
         expand = _flat_exact_trunk(p, zero_tiles, mask_tiles)
     # cuDNN may hand back its convs' outputs in either memory format, and
@@ -309,42 +340,106 @@ def _flat_exact_trunk(p, x, mask):
             + conv2d_same(l3, p["conv10"]) + p["expand_bias"])
 
 
-def _flat_fast_trunk(p, x, zero_u8, mask):
-    """The flat fast tier's trunk: five conv stages with the glue fused
-    into each (`Epilogue`).  conv0 reads the image through a split (the
-    u8-exact k/256 input with split weights, or, for f32 input, the
-    three-term split of image and weights), with its input channels
-    zero-padded to 8 or 16; convA..conv10 round their outputs to bf16,
-    which the BeLUs and the final sum read back in f32; each stage's
-    activation is written into the first channels of its output, which
-    the next stage reads in place."""
-    bf = torch.bfloat16
+def _pad_to(t: torch.Tensor, c: int) -> torch.Tensor:
+    """``t`` with zero channels appended up to ``c``."""
+    return torch.cat([t, t.new_zeros(*t.shape[:3], c - t.shape[3])], dim=-1)
+
+
+def _glue(cur, addends, p, name: str, m) -> torch.Tensor:
+    """A stage's glue as plain ops, for stage outputs that the fused
+    epilogue does not take (f32 addends): the bf16 activation
+    ``belu(((add0 + add1) + cur) + bias) * m`` of `Epilogue`, by its plain
+    version."""
+    n = cur.shape[-1]
+    return stage_epilogue_reference(cur, Epilogue(
+        n, p[name + "_bias"], p[name + "_belu"], tuple(addends), m),
+        cur.new_empty(*cur.shape[:3], n, dtype=torch.bfloat16))
+
+
+def _conv0_fast(p, x, zero_u8, mask, m, s2d: bool, ws: bool):
+    """conv0 of the flat fast tier, as the JAX package's `_tile_kernel`
+    takes it: the masked bf16 activation (B, S, S, n).  On uint8 tiles of
+    an even side (``s2d``) it runs in 2x2 space-to-depth space, its bias,
+    BeLU and mask there too, then unpacks; on other uint8 tiles it reads
+    the u8-exact input k/256; on f32 tiles the two-term split of the
+    image.  ``ws`` splits the weights in two bf16 terms; without it they
+    are rounded once (the f32 input then takes conv(hi) + conv(lo), one
+    stage over [hi, lo] and the weights twice over)."""
+    bf, f32 = torch.bfloat16, torch.float32
     n = p["f_bias"].shape[0]
-    e = p["expand_bias"].shape[0]
-    m = mask.to(bf)
+    if zero_u8 is not None and s2d:
+        t8 = _pack_s2d(zero_u8).to(bf) * 2.0 ** -8
+        x0 = torch.cat([t8, t8], dim=-1) if ws else _pad_to(t8, 16)
+        w0 = p["conv0_s2d" if ws else "conv0_s2d_bf16"]
+        f4 = conv_stage(x0, FusedStage(w0, Epilogue(
+            4 * n, p["f_bias4"], p["f_belu4"], (), _pack_s2d(mask).to(bf))),
+            f32)
+        return unpack_s2d(f4)
+    epi = Epilogue(n, p["f_bias"], p["f_belu"], (), m)
     if zero_u8 is not None:
         t8 = zero_u8.to(bf) * 2.0 ** -8
-        x0 = torch.cat([t8, t8, torch.zeros_like(t8[..., :2])], dim=-1)
-        w0 = p["conv0_u8"]
-    else:
-        hi, lo = bf16_split(x)
-        x0 = torch.cat([hi, hi, lo, torch.zeros_like(hi[..., :1]).expand(
-            *hi.shape[:3], 7)], dim=-1)
-        w0 = p["conv0_f32"]
+        x0 = torch.cat([t8, t8], dim=-1) if ws else t8
+        return conv_stage(_pad_to(x0, 8), FusedStage(
+            p["conv0_u8" if ws else "conv0_u8_bf16"], epi), f32)
+    hi, lo = bf16_split(x)
+    if ws:
+        return conv_stage(_pad_to(torch.cat([hi, hi, lo], dim=-1), 16),
+                          FusedStage(p["conv0_f32"], epi), f32)
+    return conv_stage(_pad_to(torch.cat([hi, lo], dim=-1), 8),
+                      FusedStage(p["conv0_f32_bf16"], epi), f32)
+
+
+def _flat_fast_trunk(p, x, zero_u8, mask, out16=True, conv0_s2d: bool = True,
+                     conv0_ws: bool = True):
+    """The flat fast tier's trunk: conv0 (`_conv0_fast`) then four conv
+    stages.  ``out16`` True (the default) rounds every stage output to
+    bf16 and fuses the glue into each stage (`Epilogue`): each stage's
+    activation is written into the first channels of its output, which
+    the next stage reads in place, and the BeLUs and the final sum read
+    the rounded outputs back in f32.  ``out16`` False keeps every stage
+    output f32, and "bcd" keeps convA's f32 and rounds the 3x3 stages';
+    the fused epilogue takes bf16 addends only, so a stage that sums an
+    f32 output runs unfused, its glue as plain ops (`_glue`)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    n = p["f_bias"].shape[0]
+    e = p["expand_bias"].shape[0]
+    even = zero_u8 is not None and zero_u8.shape[1] % 2 == 0 \
+        and zero_u8.shape[2] % 2 == 0
+    m = mask.to(bf)
+    f_ = _conv0_fast(p, x, zero_u8, mask, m, conv0_s2d and even, conv0_ws)
 
     def act(w, name, addends=()):
         return FusedStage(w, Epilogue(n, p[name + "_bias"], p[name + "_belu"],
                                       addends, m))
 
-    f_ = conv_stage(x0, act(w0, "f"), torch.float32)
-    a = conv_stage(f_, act(p["convA_bf16"], "l1"), bf)   # l1 | conv2 | conv3
-    b = conv_stage(a[..., :n], act(p["convB_bf16"], "l2", (a[..., n:],)),
-                   bf)                                   # l2 | conv6 | conv7
-    c = conv_stage(b[..., :n], act(p["convC_bf16"], "l3",
-                                   (a[..., 2 * n:], b[..., n:])), bf)
-    return conv_stage(c[..., :n], FusedStage(p["conv10_bf16"], Epilogue(
-        e, p["expand_bias"], addends=(b[..., 2 * n:], c[..., n:]),
-        act_dtype=torch.float32)), bf)
+    def last(l3, b, c):             # conv10 + the sum, rounded addends
+        return conv_stage(l3, FusedStage(p["conv10_bf16"], Epilogue(
+            e, p["expand_bias"], addends=(b[..., 2 * n:], c[..., n:]),
+            act_dtype=f32)), bf)
+
+    if out16 is True:
+        a = conv_stage(f_, act(p["convA_bf16"], "l1"), bf)  # l1|conv2|conv3
+        b = conv_stage(a[..., :n], act(p["convB_bf16"], "l2", (a[..., n:],)),
+                       bf)                                  # l2|conv6|conv7
+        c = conv_stage(b[..., :n], act(p["convC_bf16"], "l3",
+                                       (a[..., 2 * n:], b[..., n:])), bf)
+        return last(c[..., :n], b, c)
+
+    def cv(t, name):
+        return conv_stage(t, p[name + "_bf16"],
+                          bf if out16 == "bcd" and name != "convA" else f32)
+
+    a = cv(f_, "convA")
+    l1 = _glue(a[..., :n], (), p, "l1", m)
+    b = cv(l1, "convB")
+    l2 = _glue(b[..., :n], (a[..., n:2 * n],), p, "l2", m)
+    c = cv(l2, "convC")
+    l3 = _glue(c[..., :n], (a[..., 2 * n:3 * n], b[..., n:2 * n]), p, "l3",
+               m)
+    if out16 == "bcd":
+        return last(l3, b, c)
+    return ((b[..., 2 * n:2 * n + e] + c[..., n:n + e]) + cv(l3, "conv10")) \
+        + p["expand_bias"]
 
 
 def _pack_s2d(t: torch.Tensor) -> torch.Tensor:
@@ -407,7 +502,41 @@ def _tile_kernel_packed(pp, zero_tiles, edge_tiles, mask_tiles, factor: int,
     return epilogue_cuda(total, factor, tile, h, to_u8=True, packed=True)
 
 
-_NOT_PORTED = "is not ported yet to the PyTorch package"
+def _tile_kernel_q8(q, zero_tiles, edge_tiles, mask_tiles, factor: int,
+                    tile: int, u8_io: bool = False) -> torch.Tensor:
+    """The int8 engine's tile kernel (`models.quant.q8_expand`, ``q`` from
+    `_int8_trunk`): the tiling and mask of `_tile_kernel`, the trunk's
+    three merged stages on int8 products, then the epilogue kernel (the
+    base from the edge tiles, the quantisation to u8 with ``u8_io``)."""
+    from rusty_sr_tpu_torch.models.quant import q8_expand
+    h = HALO
+    if u8_io:
+        zero_tiles = zero_tiles.float() * (1.0 / 255.0)
+    expand = q8_expand(q, zero_tiles, factor, mask=mask_tiles.float())
+    return epilogue_cuda(expand.contiguous(), factor, tile, h,
+                         edge=edge_tiles, edge_offset=h, to_u8=u8_io)
+
+
+def _int8_trunk(mparams, sample: np.ndarray, u8_io: bool, device,
+                cache: Optional[dict] = None) -> dict:
+    """The calibrated int8 trunk on ``device`` from ``sample``, zero-padded
+    tiles taken evenly across the image (one exact f32 pass,
+    `models.quant`); first-chunk-only sampling under-covers large images.
+    ``cache``: a dict the caller keeps, so that a resident process
+    calibrates once and then keeps the ranges."""
+    if cache is not None and "q" in cache:
+        return cache["q"]
+    from rusty_sr_tpu_torch.models.quant import (calibrate_act_scales,
+                                                 prepare_q8, quantize_trunk)
+    if u8_io:
+        sample = sample.astype(np.float32) / 255.0
+    m = {k: torch.as_tensor(v, dtype=torch.float32).to(device)
+         for k, v in mparams.items()}
+    q = prepare_q8(quantize_trunk(m, calibrate_act_scales(
+        m, torch.from_numpy(np.ascontiguousarray(sample)).to(device))))
+    if cache is not None:
+        cache["q"] = q
+    return q
 
 
 # --- The chunk pipeline shared by every tile entry point ---
@@ -558,11 +687,14 @@ def _check_tier(compute_dtype) -> bool:
 
 
 def _xla_runner(params, factor: int, tile: int, fast: bool, u8_io: bool,
-                device: torch.device):
+                device: torch.device, trunk: str = "auto", out16=True,
+                conv0_s2d: bool = True, conv0_ws: bool = True):
     """The xla engine's tile kernel with its weights on ``device``:
     (run, use_packed).  The packed tier takes the fast tier on uint8
-    tiles of an even padded side; the flat tile kernel takes the rest."""
-    use_packed = fast and u8_io and (tile + 2 * HALO) % 2 == 0
+    tiles of an even padded side unless ``trunk`` is "flat"; the flat
+    tile kernel takes the rest, steered by the knobs."""
+    use_packed = fast and u8_io and trunk != "flat" \
+        and (tile + 2 * HALO) % 2 == 0
     if use_packed:
         pp = prepare_stages({k: v.to(device) for k, v in
                              packed_trunk_params(params, factor).items()})
@@ -571,7 +703,19 @@ def _xla_runner(params, factor: int, tile: int, fast: bool, u8_io: bool,
     fp = prepare_stages({k: v.to(device) for k, v in
                          flat_trunk_params(params, fast).items()})
     return (lambda z, e, m: _tile_kernel(fp, z, e, m, factor, tile, fast,
-                                         u8_io)), False
+                                         u8_io, out16, conv0_s2d,
+                                         conv0_ws)), False
+
+
+def _resolve_out16(out16, fast: bool):
+    """JAX's resolution of ``out16``: None is True in the fast tier and
+    False in the exact tier; other values are True, False or "bcd"."""
+    if out16 is None:
+        return fast
+    if out16 not in (True, False, "bcd"):
+        raise ValueError(f"out16 must be None, True, False or 'bcd', not "
+                         f"{out16!r}")
+    return out16
 
 
 def _tile_specs(chunk: int, tile: int, factor: int, u8_io: bool,
@@ -590,30 +734,42 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
              chunk: Optional[int] = None, engine: str = "xla",
              compute_dtype: Optional[torch.dtype] = None, out16=None,
              conv0_s2d: bool = True, conv0_ws: bool = True,
-             trunk: str = "auto", device="cuda") -> np.ndarray:
+             trunk: str = "auto", rh: int = 16, packed=None,
+             device="cuda") -> np.ndarray:
     """Upscale an (H,W,3) image by ``factor``, any size: uint8 in gives
-    uint8 out on the xla engine; float32 in [0,1] gives float32 out.
+    uint8 out on the xla and int8 engines; float32 in [0,1] gives float32
+    out.
 
     ``tile`` is the LR tile side (tile + 2*HALO is the padded side; 242
     gives 256).  ``chunk`` is the number of tiles per dispatch (24).
     ``engine``: "xla" (the default; `_tile_kernel`, or
     `_tile_kernel_packed` for the fast tier on uint8 tiles of an even
-    padded side) or "fused" (the trunk kernel; float32 images only).
+    padded side), "fused" (the trunk kernel; float32 images only) or
+    "int8" (`_tile_kernel_q8`: the trunk's merged stages on int8 products,
+    calibrated on tiles taken evenly across the image).
     ``compute_dtype`` None (or float32) is the exact tier; bfloat16 the
-    fast tier.  ``out16``, ``conv0_s2d``, ``conv0_ws`` and ``trunk`` are
-    the JAX package's variant knobs; only their defaults are ported.
+    fast tier.
+
+    The JAX package's variant knobs, which change only the xla engine's
+    fast tier: ``trunk="flat"`` takes the flat tile kernel where "auto"
+    takes the packed one; on the flat kernel ``out16`` (None: True) rounds
+    every stage output to bf16, False none, "bcd" all but convA's;
+    ``conv0_s2d`` runs conv0 of uint8 tiles of an even side in 2x2
+    space-to-depth space; ``conv0_ws`` splits conv0's weights in two bf16
+    terms (False: rounded once).  ``packed``: the fused engine's weights
+    from `ops.cuda.trunk.pack_trunk_weights`, so that a caller does not
+    pack them for every image.  ``rh`` is the Pallas kernel's row block,
+    validated as there (a divisor of the tile is chosen) and otherwise
+    unused: the CUDA kernels have no row block.
     ``device`` runs the tiles there: "cuda" launches the kernels, "cpu"
     runs their plain PyTorch versions."""
-    if engine not in ("xla", "fused"):
-        raise ValueError(f"engine {engine!r} {_NOT_PORTED}; use 'xla' or "
-                         "'fused'")
+    if engine not in ("xla", "fused", "int8"):
+        raise ValueError(f"engine must be 'xla', 'fused' or 'int8', not "
+                         f"{engine!r}")
+    if trunk not in ("auto", "flat"):
+        raise ValueError(f"trunk must be 'auto' or 'flat', not {trunk!r}")
     fast = _check_tier(compute_dtype)
-    for knob, value, default in (("out16", out16, None),
-                                 ("conv0_s2d", conv0_s2d, True),
-                                 ("conv0_ws", conv0_ws, True),
-                                 ("trunk", trunk, "auto")):
-        if value != default:
-            raise ValueError(f"tiled_sr({knob}={value!r}) {_NOT_PORTED}")
+    out16 = _resolve_out16(out16, fast)
     u8_io = np.asarray(image).dtype == np.uint8
     img = np.asarray(image) if u8_io else np.asarray(image, np.float32)
     if engine == "fused" and u8_io:
@@ -630,16 +786,31 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
     ny = max(1, -(-hgt // tile))
     nx = max(1, -(-wid // tile))
 
+    use_packed = False
     if engine == "fused":
+        if rh < 1:
+            raise ValueError(f"rh must be positive, got {rh}")
+        rh = next(d for d in range(rh, 0, -1) if tile % d == 0)
         cd = compute_dtype or torch.float32
-        packed = {k: v.to(device) for k, v in pack_trunk_weights(
-            trunk_params(params), factor, cd).items()}
+        if packed is None:
+            packed = pack_trunk_weights(trunk_params(params), factor, cd)
+        packed = {k: v.to(device) for k, v in packed.items()}
         run = lambda z, e, m: _tile_kernel_fused(  # noqa: E731
             packed, z, e, m, factor, tile, cd)
-        use_packed = False
+    elif engine == "int8":
+        # Calibration tiles taken evenly across the whole image, gathered
+        # one at a time.
+        idx = np.unique(np.linspace(0, ny * nx - 1,
+                                    min(chunk, ny * nx)).astype(int))
+        sample = np.concatenate([native.gather_tiles_range(
+            img, tile, h, nx, i, i + 1)[0] for i in idx])
+        q = _int8_trunk(trunk_params(params), sample, u8_io, device)
+        run = lambda z, e, m: _tile_kernel_q8(  # noqa: E731
+            q, z, e, m, factor, tile, u8_io)
     else:
         run, use_packed = _xla_runner(params, factor, tile, fast, u8_io,
-                                      device)
+                                      device, trunk, out16, conv0_s2d,
+                                      conv0_ws)
 
     out = np.zeros((hgt * factor, wid * factor, 3),
                    np.uint8 if u8_io else np.float32)
@@ -655,7 +826,8 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
 
 def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
                    chunk: Optional[int] = None,
-                   compute_dtype: Optional[torch.dtype] = None, mesh=None,
+                   compute_dtype: Optional[torch.dtype] = None, out16=None,
+                   mesh=None,
                    on_image_done: Optional[Callable] = None,
                    release_outputs: bool = False, device="cuda") -> list:
     """Upscale a list of (H,W,3) images on the xla engine, with chunks of
@@ -666,7 +838,8 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
 
     The tier is `tiled_sr`'s: exact for ``compute_dtype`` None, fast for
     bfloat16 (the packed tier on uint8 tiles of an even padded side, the
-    flat tier otherwise).  ``on_image_done(i, out)`` is called on the
+    flat tier otherwise, with `tiled_sr`'s ``out16``).  The int8 engine is
+    `tiled_sr`'s alone, as in the JAX package.  ``on_image_done(i, out)`` is called on the
     caller's thread, in ascending ``i``, the moment image i's last tile
     is scattered, while later chunks still compute: a caller that encodes
     there overlaps the host with the card, and one that blocks holds the
@@ -685,6 +858,7 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
     tile's result does not depend on the device that ran it, so the
     outputs are the single-device path's."""
     fast = _check_tier(compute_dtype)
+    out16 = _resolve_out16(out16, fast)
     if not images:
         return []
     imgs = [np.asarray(im) for im in images]
@@ -704,8 +878,8 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
     metas = [(max(1, -(-im.shape[0] // tile)), max(1, -(-im.shape[1] // tile)))
              for im in imgs]                         # (ny, nx) per image
     starts = np.cumsum([0] + [ny * nx for ny, nx in metas])
-    runners = [_xla_runner(params, factor, tile, fast, u8_io, d)
-               for d in devices]
+    runners = [_xla_runner(params, factor, tile, fast, u8_io, d,
+                           out16=out16) for d in devices]
     use_packed = runners[0][1]
 
     def gather_range(g0: int, g1: int, bufs) -> None:

@@ -35,7 +35,10 @@ it computes its share of the crops' rows with a halo from the crop
 itself, so its forward pass needs no collective (`loss_fn`); each
 rank's loss is its share of the global loss, and one all-reduce of a
 flat buffer over the data and spatial axes — every gradient, the loss
-and the mse — sums them into the gradient of the global mean.  On a
+and the mse — sums them into the gradient of the global mean (in the
+bf16 tiers the convolution weights' gradients are summed in float32 and
+rounded to bfloat16 once, after the sum, as one process rounds them
+once: `bf16_grad_leaves`).  On a
 model axis each rank's Adam holds its `tp_spec` shard of every
 parameter and moment, and the full parameters are gathered over the
 axis before each step (`_GridState`).  Every rank thus makes the same
@@ -201,6 +204,26 @@ def step_precision(cfg: TrainConfig):
     return tf32_on_bf16() if bf16 else exact_f32()
 
 
+def bf16_grad_leaves(cfg: TrainConfig, names) -> tuple:
+    """The leaves whose gradient a step rounds to bfloat16, once: in the
+    bf16 tiers (``amp``, the packed trunk) the convolution weights, whose
+    convolutions return their gradient unrounded in float32
+    (`ops.conv.conv2d_bf16`).  One process rounds the whole gradient; a
+    mesh rounds the sum of the ranks' parts, after the all-reduce, which
+    is the same rounding point."""
+    if not (cfg.amp or cfg.trunk == "packed"):
+        return ()
+    return tuple(k for k in names if k.startswith("conv"))
+
+
+def _round_to_bf16_(grads) -> None:
+    """Round each gradient to bfloat16 in place (its values; the tensor
+    stays float32)."""
+    with torch.no_grad():
+        for g in grads:
+            g.copy_(g.to(torch.bfloat16))
+
+
 def world_of(group) -> tuple:
     """(rank, world size) of a process group; (0, 1) for None."""
     if group is None:
@@ -219,14 +242,16 @@ class _GridState:
     mse), summed over ``grid.reduce_group``; under a model axis ``gbuf``
     (every leaf in its full layout, zero but for this rank's shards and,
     on model rank 0, the replicated leaves), summed over
-    ``grid.model_group``, which gathers them.  The replicated leaves
+    ``grid.model_group``, which gathers them.  ``rounded`` names the
+    leaves whose summed gradient `unpack` rounds to bfloat16
+    (`bf16_grad_leaves`).  The replicated leaves
     travel too: each model rank computes their gradient on its own, and
     two processes' convolutions need not agree to the last bit (cuDNN's
     weight gradients on the card), so model rank 0's values are the
     ones every rank loads."""
 
-    def __init__(self, params: dict, grid):
-        self.full, self.grid = params, grid
+    def __init__(self, params: dict, grid, rounded=()):
+        self.full, self.grid, self.rounded = params, grid, tuple(rounded)
         nm, self.m = grid.shape["model"], grid.coords["model"]
         self.nm = nm
         self.sharded = [k for k, v in params.items()
@@ -323,12 +348,13 @@ class _GridState:
             dist.all_reduce(self.flat, group=self.grid.reduce_group)
 
     def unpack(self) -> tuple:
-        """``flat`` into the held tensors' gradients; views of its (loss,
-        mse)."""
+        """``flat`` into the held tensors' gradients, the ``rounded`` ones
+        rounded to bfloat16 after the sum; views of its (loss, mse)."""
         off = 0
         for h in self.held.values():
             h.grad.copy_(self.flat[off:off + h.numel()].view_as(h))
             off += h.numel()
+        _round_to_bf16_(self.held[k].grad for k in self.rounded)
         return self.flat[off], self.flat[off + 1]
 
     def forward_backward(self, hr, cfg) -> None:
@@ -398,11 +424,14 @@ def train_step(params: dict, opt: torch.optim.Optimizer, hr: torch.Tensor,
     is its share of the global batch's (`loss_fn`), and one all-reduce
     sums the gradients, loss and mse before Adam's update."""
     if group is not None:
-        return _grid_step(_GridState(params, RankGrid(group)), opt, hr, cfg)
+        return _grid_step(_GridState(params, RankGrid(group),
+                                     bf16_grad_leaves(cfg, params)),
+                          opt, hr, cfg)
     opt.zero_grad(set_to_none=True)
     with step_precision(cfg):
         loss, mse = loss_fn(params, hr, cfg)
         loss.backward()
+    _round_to_bf16_(params[k].grad for k in bf16_grad_leaves(cfg, params))
     opt.step()
     return loss.detach(), mse.detach()
 
@@ -527,7 +556,8 @@ def make_train_step(cfg: TrainConfig, params: dict, group=None,
     cuda = next(iter(params.values())).is_cuda
     state = None
     if group is not None:
-        state = _GridState(params, RankGrid(group, n_spatial, n_model))
+        state = _GridState(params, RankGrid(group, n_spatial, n_model),
+                           bf16_grad_leaves(cfg, params))
     held = params if state is None else state.held
     opt = make_optimizer(cfg, held, capturable=cuda)
     return (GraphedStep if cuda else _EagerStep)(params, opt, cfg,

@@ -1,1 +1,6 @@
-"""Host-side image I/O and tile gather/scatter."""
+"""Host-side image I/O, tile gather/scatter and profiling."""
+from rusty_sr_tpu_torch.utils.imageio import (  # noqa: F401
+    load_image,
+    psnr,
+    save_image,
+)

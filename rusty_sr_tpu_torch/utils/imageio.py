@@ -221,6 +221,12 @@ def load_image_u8(path: str) -> np.ndarray:
         return png_decode(f.read())
 
 
+def load_image(path: str) -> np.ndarray:
+    """PNG (any image Pillow reads, with Pillow) -> (H,W,3) float32 sRGB in
+    [0, 1], alpha dropped: the u8 pixels over 255."""
+    return load_image_u8(path).astype(np.float32) / 255.0
+
+
 def _write_replacing(path: str, data: bytes) -> None:
     """Write to a temporary name and rename, so that a failed or
     interrupted write leaves no truncated file."""

@@ -369,6 +369,58 @@ def test_cuda_xla_path_matches_cpu(cuda_device, fast, tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kw,bound", [
+    (dict(compute_dtype=torch.bfloat16, trunk="flat"), 4),
+    (dict(compute_dtype=torch.bfloat16, trunk="flat", conv0_ws=False), 4),
+    (dict(compute_dtype=torch.bfloat16, trunk="flat", out16=False), 4),
+    (dict(compute_dtype=torch.bfloat16, trunk="flat", out16="bcd"), 4),
+    (dict(compute_dtype=torch.bfloat16, tile=21, conv0_ws=False), 4),
+    (dict(engine="int8"), 1),
+    (dict(compute_dtype=torch.bfloat16, conv0_ws=False, f32=True), 4)],
+    ids=["flat", "flat-ws1", "flat-out32", "flat-bcd", "odd-ws1", "int8",
+         "f32-ws1"])
+def test_cuda_tiled_sr_knobs_match_cpu(cuda_device, kw, bound):
+    """`tiled_sr`'s variant knobs and the int8 engine on u8 input (f32
+    where named): the kernels launched, within the tier's bound of the
+    plain run."""
+    from rusty_sr_tpu_torch.models import quant
+    img = np.random.default_rng(9).integers(0, 256, (37, 50, 3),
+                                            dtype=np.uint8)
+    if kw.get("f32"):
+        img = img.astype(np.float32) / 255.0
+    kw = {k: v for k, v in kw.items() if k != "f32"}
+    anime = load_builtin("anime")
+    kw = {"tile": 20, "chunk": 4, **kw}
+    n_conv, n_int8 = conv_stage.LAUNCHES, quant.LAUNCHES
+    got = tiling.tiled_sr(anime, img, 3, device=cuda_device, **kw)
+    assert conv_stage.LAUNCHES > n_conv
+    if kw.get("engine") == "int8":
+        assert quant.LAUNCHES == n_int8 + 2 * 6     # two chunks
+    want = tiling.tiled_sr(anime, img, 3, device="cpu", **kw)
+    assert got.dtype == want.dtype == img.dtype
+    if got.dtype != np.uint8:
+        got, want = (np.floor(np.clip(t, 0, 1) * 255 + 0.5) for t in
+                     (got, want))
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4096, 800, 96), (1000, 288, 64)])
+def test_cuda_int8_mm_matches_integer_product(cuda_device, m, k, n):
+    from rusty_sr_tpu_torch.models import quant
+    g = torch.Generator().manual_seed(m)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).t()
+    before = quant.LAUNCHES
+    got = quant.int8_mm(a.to(cuda_device), b.to(cuda_device))
+    assert quant.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), quant.int8_mm_reference(a, b))
+    assert torch.equal(quant.int8_mm_reference(a.to(cuda_device),
+                                               b.to(cuda_device)).cpu(),
+                       quant.int8_mm_reference(a, b))
+
+
+@pytest.mark.cuda
 def test_cuda_conv_stage_and_epilogue_reject_bad_inputs(cuda_device):
     x = torch.zeros((1, 8, 8, 16), device=cuda_device, dtype=torch.bfloat16)
     w = torch.zeros((3, 3, 16, 8), device=cuda_device, dtype=torch.bfloat16)

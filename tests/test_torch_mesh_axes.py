@@ -18,18 +18,22 @@ is JAX's mesh step's within rel 1e-5.
   the global batch, the suite's f32 gradient bound
   (tests/test_torch_train_step.py; CPU sums in another order, measured
   up to 1.2e-5 where a leaf's terms cancel).
-- ``--amp`` and the packed trunk: each rank's autograd rounds its own
-  part of a bf16 operand's gradient to bf16 before the ranks' sum (the
-  weights', and the activations' on a spatial shard's halo rows), where
-  one process rounds the whole sum once; so the reduced gradient is
-  held to the one-process gradient within 1e-2 of each leaf's largest
-  magnitude (measured up to 5.8e-3; bf16's half-ulp is 2e-3), and the
-  second step's loss to the one-process run's within rel 1e-4 (measured
-  up to 4.7e-5).  Parameters after Adam are not compared: its first
-  steps move a weight by about the learning rate whatever the gradient's
-  size, so a gradient entry that cancels to near zero, rounded either
-  way, moves it up to 4e-3 (the port and JAX part so on one device,
-  ROADMAP queue C).
+- ``--amp`` and the packed trunk: the bf16 convolutions' gradients stay
+  float32 through the all-reduce (the activations' too, so a spatial
+  shard's halo rows carry no rounding of their own), and the step rounds
+  each convolution weight's summed gradient to bf16 once, as one process
+  rounds its whole gradient once.  So the reduced gradient is held to
+  the one-process gradient on the global batch within 1e-4 of each
+  leaf's largest magnitude, like f32's, except for entries exactly one
+  bf16 ulp apart (the two f32 sums, in other orders, on either side of a
+  rounding midpoint), on at most 1e-3 of a leaf's entries (measured: 2
+  of conv0's 2400 entries on (2,1,2) --amp, 1 elsewhere); every entry
+  of the gradient is a bf16 value.  Adam's first step moves a weight by
+  lr * g / (|g| + eps), about lr * sign(g): the parameters after step 1
+  within atol 1e-4 of one process's wherever the two gradients' signs
+  agree; the second step's loss within rel 1e-5 (measured up to
+  7.6e-7).  The one-process gradient is taken on one thread, as the
+  ranks', so that its f32 sums are the same on every run.
 
 Serving: `make_sharded_apply` with a spatial axis against JAX's at atol
 1e-5 (tests/test_multichip.py::test_mesh_shapes_inference).
@@ -129,17 +133,38 @@ def jax_steps(tree, hr, axes, tier):
 
 
 def port_steps(tree, hr, tier):
-    """The port's one-process steps over the batches ``hr``: (losses, the
-    first step's gradient)."""
+    """The port's one-process steps over the batches ``hr``, on one
+    thread: (losses, the first step's gradient, the parameters after
+    it)."""
     cfg = TL.TrainConfig(crop=hr.shape[2], batch_size=hr.shape[1],
                          **TIERS[tier])
     p = {k: torch.tensor(v, requires_grad=True) for k, v in tree.items()}
     step, _ = TL.make_train_step(cfg, p)
-    losses, grad = [], None
-    for b in hr:
-        losses.append(float(step(torch.from_numpy(b))[0]))
-        grad = grad or {k: v.grad.numpy().copy() for k, v in p.items()}
-    return losses, grad
+    losses, grad, p1 = [], None, None
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for b in hr:
+            losses.append(float(step(torch.from_numpy(b))[0]))
+            if grad is None:
+                grad = {k: v.grad.numpy().copy() for k, v in p.items()}
+                p1 = {k: v.detach().numpy().copy() for k, v in p.items()}
+    finally:
+        torch.set_num_threads(threads)
+    return losses, grad, p1
+
+
+def assert_bf16_sum_close(got, want, scale, name):
+    """``got`` within 1e-4 * ``scale`` of ``want``, both bf16 values,
+    except for entries one bf16 ulp apart on at most 1e-3 of them."""
+    g, w = torch.from_numpy(got), torch.from_numpy(want)
+    for t in (g, w):
+        assert torch.equal(t, t.to(torch.bfloat16).float()), name
+    off = (g - w).abs() > 1e-4 * scale
+    assert float(off.float().mean()) <= 1e-3, (name, int(off.sum()))
+    bits = [t[off].to(torch.bfloat16).view(torch.int16).int()
+            for t in (g, w)]
+    assert bool(((bits[0] - bits[1]).abs() == 1).all()), name
 
 
 CASES = [((2, 2, 1), t) for t in TIERS] + [((2, 1, 2), t) for t in TIERS] \
@@ -174,14 +199,21 @@ def test_mesh_step_matches_jax(tmp_path, axes, tier):
                               axis=-1)
             if ranks[0]["g_" + k].shape != tree[k].shape
             else ranks[0]["g_" + k] for k in tree}
-    one_l, one_g = port_steps(tree, hr, tier)
-    bound = 1e-4 if tier == "f32" else 1e-2
+    one_l, one_g, one_p1 = port_steps(tree, hr, tier)
     for k in tree:
         scale = float(np.abs(one_g[k]).max())
-        np.testing.assert_allclose(grad[k], one_g[k], rtol=0,
-                                   atol=bound * scale, err_msg=k)
+        if tier == "f32" or not k.startswith("conv"):
+            np.testing.assert_allclose(grad[k], one_g[k], rtol=0,
+                                       atol=1e-4 * scale, err_msg=k)
+        else:
+            assert_bf16_sum_close(grad[k], one_g[k], scale, k)
     if tier != "f32":
-        np.testing.assert_allclose(got_l, one_l, rtol=1e-4)
+        np.testing.assert_allclose(got_l, one_l, rtol=1e-5)
+        for k in tree:
+            agree = np.sign(grad[k]) == np.sign(one_g[k])
+            np.testing.assert_allclose(ranks[0]["p1_" + k][agree],
+                                       one_p1[k][agree], rtol=0, atol=1e-4,
+                                       err_msg=k)
         return
     np.testing.assert_allclose(got_l, j_l, rtol=1e-5)
     for k in tree:

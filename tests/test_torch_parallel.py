@@ -206,7 +206,7 @@ def test_cli_single_image_mesh(tmp_path, one_thread):
 @pytest.mark.parametrize("argv,msg", [
     (["--engine", "fused", "--mesh", "2", "IN", "o.png"], "'xla' engine"),
     (["-p", "bilinear", "--mesh", "2", "DIR", "OUT"], "bilinear/downsample"),
-    (["-d", "--mesh", "data=2", "IN", "o.png"], "bilinear/downsample"),
+    (["-d", "--mesh", "data=2", "DIR", "OUT"], "bilinear/downsample"),
     (["--mesh", "data=2,bogus=1", "IN", "o.png"], "bad --mesh"),
     (["watch", "--mesh", "two", "DIR", "OUT"], "bad --mesh"),
     (["train", "--mesh", "data=", "w.rsr", "DIR"], "bad --mesh")],

@@ -126,8 +126,8 @@ def test_api_upscale(anime):
     np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="finite sRGB"):
         api.upscale(image((4, 4, 3)) * 2.0, anime, device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        tiled_sr(anime, image((4, 4, 3)), engine="int8", device="cpu")
+    with pytest.raises(ValueError, match="engine must be"):
+        tiled_sr(anime, image((4, 4, 3)), engine="int4", device="cpu")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tiled_sr(anime, image((4, 4, 3)), device="cpu",
                  compute_dtype=torch.float16)

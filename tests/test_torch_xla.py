@@ -257,15 +257,6 @@ def test_tiled_sr_xla_f32_matches_jax(anime):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
-@pytest.mark.parametrize("knob", [{"out16": False}, {"conv0_s2d": False},
-                                  {"conv0_ws": False}, {"trunk": "flat"},
-                                  {"engine": "int8"}])
-def test_tiled_sr_unported_knobs_raise(anime, knob):
-    with pytest.raises(ValueError, match="not ported yet"):
-        tiling.tiled_sr(anime, u8_image((4, 4, 3)), device="cpu",
-                        compute_dtype=BF16, **knob)
-
-
 def test_api_upscale_dtype_contract(anime):
     u8 = u8_image((9, 14, 3), 11)
     kw = dict(tile=16, chunk=4, device="cpu")
