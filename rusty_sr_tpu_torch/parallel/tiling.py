@@ -46,6 +46,7 @@ from rusty_sr_tpu_torch.ops.cuda.shuffle import (depth_to_space_cuda,
 from rusty_sr_tpu_torch.ops.cuda.trunk import fused_trunk, pack_trunk_weights
 from rusty_sr_tpu_torch.ops.resize import avg_pool, bilinear_phases_cropped
 from rusty_sr_tpu_torch.utils import native
+from rusty_sr_tpu_torch.utils.profiling import span
 
 HALO = 7
 
@@ -593,7 +594,13 @@ def _run_chunks(devices, n_tiles: int, chunk: int, in_specs, out_spec,
     down on its download stream, both ``non_blocking=True``, so the next
     chunk's upload and the previous one's download overlap this chunk's
     kernels; the slot's events order the host's reuse of it after those
-    copies.  On the CPU every chunk gets fresh arrays and runs in order."""
+    copies.  On the CPU every chunk gets fresh arrays and runs in order.
+
+    Each chunk's stages are `span`s (``rusty_sr.chunk.*``): ``pin`` (a
+    new pinned slot), ``slot_wait`` (the host waits for a slot's copies),
+    ``gather`` (with the zero fill of unused rows), ``launch`` (upload,
+    kernels and download enqueued; on the CPU the run), ``fetch_wait``
+    (the host waits for a result's download) and ``scatter``."""
     n_dev = len(devices)
     n_chunks = -(-n_tiles // chunk)
     n_chunks += -n_chunks % n_dev
@@ -602,10 +609,12 @@ def _run_chunks(devices, n_tiles: int, chunk: int, in_specs, out_spec,
     def drain_one():
         g0, cnt, res = pending.popleft()
         if isinstance(res, _Slot):
-            res.fetched.synchronize()
+            with span("chunk.fetch_wait"):
+                res.fetched.synchronize()
             res = res.out[:cnt]
         if cnt:
-            scatter(g0, res[:cnt].numpy())
+            with span("chunk.scatter"):
+                scatter(g0, res[:cnt].numpy())
 
     def tile_range(j):
         g0 = min(j * chunk, n_tiles)
@@ -614,12 +623,15 @@ def _run_chunks(devices, n_tiles: int, chunk: int, in_specs, out_spec,
     if devices[0].type != "cuda":
         for j in range(n_chunks):
             g0, g1 = tile_range(j)
-            ins = [None if s is None else torch.zeros(s[0], dtype=s[1])
-                   for s in in_specs]
-            if g1 > g0:
-                gather(g0, g1, [None if t is None else t.numpy()
-                                for t in ins])
-            pending.append((g0, g1 - g0, runs[j % n_dev](*ins)))
+            with span("chunk.gather"):
+                ins = [None if s is None else torch.zeros(s[0], dtype=s[1])
+                       for s in in_specs]
+                if g1 > g0:
+                    gather(g0, g1, [None if t is None else t.numpy()
+                                    for t in ins])
+            with span("chunk.launch"):
+                res = runs[j % n_dev](*ins)
+            pending.append((g0, g1 - g0, res))
             if len(pending) >= _MAX_INFLIGHT * n_dev:
                 drain_one()
         while pending:
@@ -641,17 +653,20 @@ def _run_chunks(devices, n_tiles: int, chunk: int, in_specs, out_spec,
             device, ring = devices[lane], rings[lane]
             compute, up, down = streams[lane]
             if len(ring) <= k % n_slots:
-                ring.append(_Slot(in_specs, out_spec))
+                with span("chunk.pin"):
+                    ring.append(_Slot(in_specs, out_spec))
             slot = ring[k % n_slots]
-            slot.uploaded.synchronize()
-            slot.fetched.synchronize()
-            bufs = [None if t is None else t.numpy() for t in slot.ins]
-            if g1 > g0:
-                gather(g0, g1, bufs)
-            for b in bufs:
-                if b is not None:
-                    b[g1 - g0:] = 0
-            with torch.cuda.device(device):
+            with span("chunk.slot_wait"):
+                slot.uploaded.synchronize()
+                slot.fetched.synchronize()
+            with span("chunk.gather"):
+                bufs = [None if t is None else t.numpy() for t in slot.ins]
+                if g1 > g0:
+                    gather(g0, g1, bufs)
+                for b in bufs:
+                    if b is not None:
+                        b[g1 - g0:] = 0
+            with span("chunk.launch"), torch.cuda.device(device):
                 with torch.cuda.stream(up):
                     ins = [None if t is None else
                            t.to(device, non_blocking=True) for t in slot.ins]
@@ -787,33 +802,35 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
     nx = max(1, -(-wid // tile))
 
     use_packed = False
-    if engine == "fused":
-        if rh < 1:
-            raise ValueError(f"rh must be positive, got {rh}")
-        rh = next(d for d in range(rh, 0, -1) if tile % d == 0)
-        cd = compute_dtype or torch.float32
-        if packed is None:
-            packed = pack_trunk_weights(trunk_params(params), factor, cd)
-        packed = {k: v.to(device) for k, v in packed.items()}
-        run = lambda z, e, m: _tile_kernel_fused(  # noqa: E731
-            packed, z, e, m, factor, tile, cd)
-    elif engine == "int8":
-        # Calibration tiles taken evenly across the whole image, gathered
-        # one at a time.
-        idx = np.unique(np.linspace(0, ny * nx - 1,
-                                    min(chunk, ny * nx)).astype(int))
-        sample = np.concatenate([native.gather_tiles_range(
-            img, tile, h, nx, i, i + 1)[0] for i in idx])
-        q = _int8_trunk(trunk_params(params), sample, u8_io, device)
-        run = lambda z, e, m: _tile_kernel_q8(  # noqa: E731
-            q, z, e, m, factor, tile, u8_io)
-    else:
-        run, use_packed = _xla_runner(params, factor, tile, fast, u8_io,
-                                      device, trunk, out16, conv0_s2d,
-                                      conv0_ws)
+    with span("tiled.prepare"):
+        if engine == "fused":
+            if rh < 1:
+                raise ValueError(f"rh must be positive, got {rh}")
+            rh = next(d for d in range(rh, 0, -1) if tile % d == 0)
+            cd = compute_dtype or torch.float32
+            if packed is None:
+                packed = pack_trunk_weights(trunk_params(params), factor, cd)
+            packed = {k: v.to(device) for k, v in packed.items()}
+            run = lambda z, e, m: _tile_kernel_fused(  # noqa: E731
+                packed, z, e, m, factor, tile, cd)
+        elif engine == "int8":
+            # Calibration tiles taken evenly across the whole image,
+            # gathered one at a time.
+            idx = np.unique(np.linspace(0, ny * nx - 1,
+                                        min(chunk, ny * nx)).astype(int))
+            sample = np.concatenate([native.gather_tiles_range(
+                img, tile, h, nx, i, i + 1)[0] for i in idx])
+            q = _int8_trunk(trunk_params(params), sample, u8_io, device)
+            run = lambda z, e, m: _tile_kernel_q8(  # noqa: E731
+                q, z, e, m, factor, tile, u8_io)
+        else:
+            run, use_packed = _xla_runner(params, factor, tile, fast, u8_io,
+                                          device, trunk, out16, conv0_s2d,
+                                          conv0_ws)
 
-    out = np.zeros((hgt * factor, wid * factor, 3),
-                   np.uint8 if u8_io else np.float32)
+    with span("tiled.outputs"):
+        out = np.zeros((hgt * factor, wid * factor, 3),
+                       np.uint8 if u8_io else np.float32)
     in_specs, out_spec = _tile_specs(chunk, tile, factor, u8_io,
                                      not use_packed)
     _run_chunks(
@@ -878,8 +895,9 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
     metas = [(max(1, -(-im.shape[0] // tile)), max(1, -(-im.shape[1] // tile)))
              for im in imgs]                         # (ny, nx) per image
     starts = np.cumsum([0] + [ny * nx for ny, nx in metas])
-    runners = [_xla_runner(params, factor, tile, fast, u8_io, d,
-                           out16=out16) for d in devices]
+    with span("tiled.prepare"):
+        runners = [_xla_runner(params, factor, tile, fast, u8_io, d,
+                               out16=out16) for d in devices]
     use_packed = runners[0][1]
 
     def gather_range(g0: int, g1: int, bufs) -> None:
@@ -899,8 +917,9 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
             g0 = int(starts[i + 1])
             i += 1
 
-    outs = [np.zeros((im.shape[0] * factor, im.shape[1] * factor, 3),
-                     np.uint8 if u8_io else np.float32) for im in imgs]
+    with span("tiled.outputs"):
+        outs = [np.zeros((im.shape[0] * factor, im.shape[1] * factor, 3),
+                         np.uint8 if u8_io else np.float32) for im in imgs]
     remain = [ny * nx for ny, nx in metas]     # undrained tiles per image
     cursor = [0]                               # the image the drain is in
     in_specs, out_spec = _tile_specs(chunk, tile, factor, u8_io,
@@ -933,7 +952,8 @@ def _drain_batch_chunk(res: np.ndarray, g0: int, starts, metas, outs,
         j += run_len
         remain[idx] -= run_len
         if remain[idx] == 0 and on_image_done is not None:
-            on_image_done(idx, outs[idx])
+            with span("batch.on_image_done"):
+                on_image_done(idx, outs[idx])
             if release_outputs:
                 outs[idx] = None
 

@@ -23,6 +23,7 @@ import struct
 import numpy as np
 
 from rusty_sr_tpu_torch.utils import native
+from rusty_sr_tpu_torch.utils.profiling import span
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -206,6 +207,11 @@ def _read_native(path: str):
 
 def load_image_u8(path: str) -> np.ndarray:
     """PNG (any image Pillow reads, with Pillow) -> (H,W,3) u8, alpha dropped."""
+    with span("codec.decode"):
+        return _load_image_u8(path)
+
+
+def _load_image_u8(path: str) -> np.ndarray:
     u8 = _read_native(path)
     if u8 is not None:
         return u8

@@ -34,6 +34,8 @@ import threading
 
 import numpy as np
 
+from rusty_sr_tpu_torch.utils.profiling import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc", "host")
 BUILD_DIR = os.path.join(_PKG, "_build", "host")
@@ -290,9 +292,10 @@ def png_encode(rgb: np.ndarray, level: int = 1, threads: int = 0,
     if threads <= 0:
         raw_mb = (h * (1 + 4 * w)) >> 20
         threads = max(1, min(os.cpu_count() or 1, raw_mb))
-    out = np.empty(int(lib.sr_png_bound(h, w)), np.uint8)
-    n = lib.sr_png_encode2(rgb, h, w, int(level), int(threads),
-                           1 if codec == "fh" else 0, out, out.size)
+    with span("codec.encode"):      # only the encodes that run natively
+        out = np.empty(int(lib.sr_png_bound(h, w)), np.uint8)
+        n = lib.sr_png_encode2(rgb, h, w, int(level), int(threads),
+                               1 if codec == "fh" else 0, out, out.size)
     if n < 0:
         return None
     return out[:n].tobytes()

@@ -7,14 +7,36 @@ chrome://tracing).  The CLI's ``--trace DIR`` wraps a whole run in it.
 `device_timer` times a function's steady state on the device: a chain of
 calls between two CUDA events (on the CPU, the host clock), best of a
 few rounds, the input changed every round.
+
+`span(name)` marks a stage of the program's own work as a
+`torch.profiler.record_function` range named ``rusty_sr.<name>``, on the
+profiler's clock beside the card's kernels, whenever a torch profiler
+records on the calling thread (``--trace DIR``, or any
+`torch.profiler.profile`); otherwise it is one shared null context.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 from typing import Callable, Optional
+
+SPAN_PREFIX = "rusty_sr."
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("chunk.gather"):`` records the range
+    ``rusty_sr.chunk.gather`` while a torch profiler records; otherwise
+    returns the module's one null context (no allocation, no profiler
+    call).  Torch is not imported here: where it is not loaded, no
+    profiler can record."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return _NULL
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 @contextlib.contextmanager
