@@ -5,21 +5,23 @@
 // The equivalent of the native data-staging layer the reference gets
 // from alumina's Rust suppliers (reference src/main.rs:187-188): the Python
 // orchestration stays thin while the per-image hot path — building the
-// zero-padded / edge-padded / mask tile batches and scattering HR tile
-// results back into the output canvas — runs as compiled C++ over raw
-// float32 buffers.  Exposed as a plain C ABI for ctypes (no pybind11 in
-// this image).
+// zero-padded / edge-padded / mask tile batches (float32) and scattering
+// HR tile results back into the output canvases (any dtype, on several
+// threads) — runs as compiled C++ over raw buffers.  Exposed as a plain
+// C ABI for ctypes (no pybind11 in this image).
 //
 // Layout contracts match tiling.py exactly:
 //   image:  (H, W, 3) f32 row-major
 //   tiles:  (ny*nx, side, side, 3) with side = tile + 2*halo
 //   mask:   (ny*nx, side, side, 1)
-//   canvas: (crop_h, crop_w, 3) — row stride crop_w; ragged right/bottom
+//   canvas: (crop_h, crop_w, C) — row stride crop_w; ragged right/bottom
 //           tile parts beyond the crop are clipped on scatter
 
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <thread>
+#include <vector>
 
 namespace {
 
@@ -84,26 +86,68 @@ void sr_gather_tiles_range(const float* img, int64_t H, int64_t W,
   }
 }
 
-// Scatter a chunk of HR tile results into the output canvas.
-// results: (count, tile_f, tile_f, 3); canvas: (crop_h, crop_w, 3) —
-// the row stride IS crop_w (every caller allocates the crop-sized
-// canvas); tile rows/cols beyond (crop_h, crop_w) are skipped (ragged
-// right/bottom edge tiles).
-void sr_scatter_tiles(const float* results, int64_t count, int64_t start,
-                      int64_t nx, int64_t tile_f, float* canvas,
-                      int64_t crop_h, int64_t crop_w) {
-  for (int64_t j = 0; j < count; ++j) {
-    const int64_t k = start + j;
-    const int64_t iy = k / nx, ix = k % nx;
-    const float* src = results + j * tile_f * tile_f * 3;
-    const int64_t y_base = iy * tile_f, x_base = ix * tile_f;
-    const int64_t rows = clampi(crop_h - y_base, 0, tile_f);
-    const int64_t cols = clampi(crop_w - x_base, 0, tile_f);
-    for (int64_t r = 0; r < rows; ++r) {
-      std::memcpy(canvas + ((y_base + r) * crop_w + x_base) * 3,
-                  src + r * tile_f * 3, sizeof(float) * 3 * cols);
+// Scatter HR tile results into output canvases, byte for byte (any
+// dtype).  `runs` holds n_runs records of 7 int64 each:
+//   j0, count, start, nx, crop_h, crop_w, canvas address
+// — results tiles [j0, j0 + count) are tiles start.. of that canvas's
+// row-major grid of nx columns.  results: (*, tile_f, tile_f) pixels of
+// px bytes; canvas: (crop_h, crop_w) pixels of px bytes, row stride
+// crop_w; tile rows/cols beyond (crop_h, crop_w) are skipped (ragged
+// right/bottom edge tiles).  The tile rows are split evenly over
+// `threads` threads, the caller's among them; a thread that cannot be
+// started leaves its share to the caller.
+void sr_scatter_runs(const uint8_t* results, int64_t tile_f, int64_t px,
+                     const int64_t* runs, int64_t n_runs, int64_t threads) {
+  struct Piece {
+    const uint8_t* src;
+    uint8_t* dst;
+    int64_t row_bytes, dst_stride;
+  };
+  std::vector<Piece> pieces;
+  std::vector<int64_t> first_row{0};  // prefix sums of the pieces' rows
+  const int64_t tile_bytes = tile_f * tile_f * px;
+  for (int64_t r = 0; r < n_runs; ++r) {
+    const int64_t* run = runs + 7 * r;
+    const int64_t j0 = run[0], count = run[1], start = run[2], nx = run[3];
+    const int64_t crop_h = run[4], crop_w = run[5];
+    uint8_t* canvas = reinterpret_cast<uint8_t*>(run[6]);
+    for (int64_t j = 0; j < count; ++j) {
+      const int64_t k = start + j;
+      const int64_t y_base = (k / nx) * tile_f, x_base = (k % nx) * tile_f;
+      const int64_t rows = clampi(crop_h - y_base, 0, tile_f);
+      const int64_t cols = clampi(crop_w - x_base, 0, tile_f);
+      if (rows == 0 || cols == 0) continue;
+      pieces.push_back({results + (j0 + j) * tile_bytes,
+                        canvas + (y_base * crop_w + x_base) * px, cols * px,
+                        crop_w * px});
+      first_row.push_back(first_row.back() + rows);
     }
   }
+  const int64_t total = first_row.back();
+  const int64_t src_stride = tile_f * px;
+  auto copy_rows = [&](int64_t lo, int64_t hi) {  // global rows [lo, hi)
+    size_t p = std::upper_bound(first_row.begin(), first_row.end(), lo) -
+               first_row.begin() - 1;
+    for (int64_t g = lo; g < hi; ++p) {
+      const Piece& pc = pieces[p];
+      const int64_t end = std::min(hi, first_row[p + 1]);
+      for (int64_t r = g - first_row[p]; g < end; ++g, ++r)
+        std::memcpy(pc.dst + r * pc.dst_stride, pc.src + r * src_stride,
+                    pc.row_bytes);
+    }
+  };
+  const int64_t n = clampi(threads, 1, std::max<int64_t>(total, 1));
+  std::vector<std::thread> workers;
+  for (int64_t t = 1; t < n; ++t) {
+    const int64_t lo = total * t / n, hi = total * (t + 1) / n;
+    try {
+      workers.emplace_back(copy_rows, lo, hi);
+    } catch (...) {
+      copy_rows(lo, hi);
+    }
+  }
+  copy_rows(0, total / n);
+  for (auto& w : workers) w.join();
 }
 
 }  // extern "C"

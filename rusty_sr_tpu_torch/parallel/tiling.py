@@ -828,8 +828,8 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
                                           device, trunk, out16, conv0_s2d,
                                           conv0_ws)
 
-    with span("tiled.outputs"):
-        out = np.zeros((hgt * factor, wid * factor, 3),
+    with span("tiled.outputs"):     # the grid covers every pixel
+        out = np.empty((hgt * factor, wid * factor, 3),
                        np.uint8 if u8_io else np.float32)
     in_specs, out_spec = _tile_specs(chunk, tile, factor, u8_io,
                                      not use_packed)
@@ -856,13 +856,13 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
     The tier is `tiled_sr`'s: exact for ``compute_dtype`` None, fast for
     bfloat16 (the packed tier on uint8 tiles of an even padded side, the
     flat tier otherwise, with `tiled_sr`'s ``out16``).  The int8 engine is
-    `tiled_sr`'s alone, as in the JAX package.  ``on_image_done(i, out)`` is called on the
-    caller's thread, in ascending ``i``, the moment image i's last tile
-    is scattered, while later chunks still compute: a caller that encodes
-    there overlaps the host with the card, and one that blocks holds the
-    chunk loop back.  ``release_outputs=True`` drops this function's
-    reference after the callback, so that slot of the returned list is
-    None.
+    `tiled_sr`'s alone, as in the JAX package.  ``on_image_done(i,
+    out)`` is called on the caller's thread, in ascending ``i``, once the
+    chunk that holds image i's last tile is scattered, while later chunks
+    still compute: a caller that encodes there overlaps the host with the
+    card, and one that blocks holds the chunk loop back.
+    ``release_outputs=True`` drops this function's reference after the
+    callback, so that slot of the returned list is None.
 
     ``mesh`` (`parallel.mesh.make_mesh`) runs the tiles on its data
     axis's devices (``mesh.lanes``, one per data index: the JAX package
@@ -917,8 +917,8 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
             g0 = int(starts[i + 1])
             i += 1
 
-    with span("tiled.outputs"):
-        outs = [np.zeros((im.shape[0] * factor, im.shape[1] * factor, 3),
+    with span("tiled.outputs"):     # the grids cover every pixel
+        outs = [np.empty((im.shape[0] * factor, im.shape[1] * factor, 3),
                          np.uint8 if u8_io else np.float32) for im in imgs]
     remain = [ny * nx for ny, nx in metas]     # undrained tiles per image
     cursor = [0]                               # the image the drain is in
@@ -936,26 +936,33 @@ def _drain_batch_chunk(res: np.ndarray, g0: int, starts, metas, outs,
                        cursor: list, remain: list, on_image_done=None,
                        release_outputs: bool = False) -> None:
     """Scatter one fetched chunk, the results of global tiles [g0, g0 +
-    len(res)), across the images it spans (chunks are contiguous in the
-    global tile order; ``cursor`` carries the image index from one call
-    to the next).  When an image's undrained count in ``remain`` reaches
-    0, ``on_image_done`` fires for it at once."""
+    len(res)), across the images it spans, in one `native.scatter_runs`
+    call (chunks are contiguous in the global tile order; ``cursor``
+    carries the image index from one call to the next).  Then
+    ``on_image_done`` fires, in ascending order, for each image whose
+    undrained count in ``remain`` the chunk brought to 0."""
     cnt, j = res.shape[0], 0
+    runs, done = [], []
     while j < cnt:            # one contiguous run of tiles per image
         g = g0 + j
         while g >= starts[cursor[0] + 1]:
             cursor[0] += 1
         idx = cursor[0]
         run_len = min(cnt - j, int(starts[idx + 1]) - g)
-        native.scatter_tiles(res[j:j + run_len], g - int(starts[idx]),
-                             metas[idx][1], outs[idx])
+        runs.append((j, run_len, g - int(starts[idx]), metas[idx][1],
+                     outs[idx]))
         j += run_len
         remain[idx] -= run_len
-        if remain[idx] == 0 and on_image_done is not None:
-            with span("batch.on_image_done"):
-                on_image_done(idx, outs[idx])
-            if release_outputs:
-                outs[idx] = None
+        if remain[idx] == 0:
+            done.append(idx)
+    native.scatter_runs(res, runs)
+    if on_image_done is None:
+        return
+    for idx in done:
+        with span("batch.on_image_done"):
+            on_image_done(idx, outs[idx])
+        if release_outputs:
+            outs[idx] = None
 
 
 def _tile_kernel_simple(edge_tiles: torch.Tensor, factor: int, tile: int,
@@ -1024,7 +1031,8 @@ def tiled_simple(image: np.ndarray, factor: int = 3, *, mode: str,
     oh, ow = (hgt * factor, wid * factor) if up else (hgt // factor,
                                                      wid // factor)
     dt = torch.uint8 if u8_io else torch.float32
-    out = np.zeros((oh, ow, 3), np.uint8 if u8_io else np.float32)
+    # The grid covers every pixel (the tile is a multiple of ``factor``).
+    out = np.empty((oh, ow, 3), np.uint8 if u8_io else np.float32)
 
     def gather(g0, g1, bufs):
         bufs[0][:g1 - g0] = et[g0:g1]

@@ -42,7 +42,7 @@ BUILD_DIR = os.path.join(_PKG, "_build", "host")
 
 CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 # name -> (source, extra flags) of each build to try, in order
-_LIBS = {"tileio": [("tileio.cc", ())],
+_LIBS = {"tileio": [("tileio.cc", ("-pthread",))],
          "png": [("pngio.cc", ("-lpng", "-lz", "-lpthread")),
                  ("pngio.cc", ("-DSR_PNG_ENCODE_ONLY", "-lz", "-lpthread"))]}
 
@@ -118,9 +118,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             _f32p, _i64, _i64, _i64, _i64, _i64, _i64, _i64,
             _f32p, _f32p, _f32p]
         lib.sr_gather_tiles_range.restype = None
-        lib.sr_scatter_tiles.argtypes = [
-            _f32p, _i64, _i64, _i64, _i64, _f32p, _i64, _i64]
-        lib.sr_scatter_tiles.restype = None
+        lib.sr_scatter_runs.argtypes = [
+            ctypes.c_void_p, _i64, _i64, _i64p, _i64, _i64]
+        lib.sr_scatter_runs.restype = None
     else:
         lib.sr_png_bound.argtypes = [_i64, _i64]
         lib.sr_png_bound.restype = _i64
@@ -244,25 +244,61 @@ def gather_tiles_range(img: np.ndarray, tile: int, halo: int, nx: int,
 def scatter_tiles(results: np.ndarray, start: int, nx: int,
                   canvas: np.ndarray) -> None:
     """Write (count, tf, tf, C) HR tiles, grid indices start.., into
-    ``canvas`` (crop_h, crop_w, C), cropping at its far edges.  float32
-    tiles into a C-contiguous float32 canvas go through the native
-    library."""
-    count, tf = results.shape[0], results.shape[1]
-    crop_h, crop_w = canvas.shape[:2]
-    lib = _load("tileio") if (results.dtype == canvas.dtype == np.float32
-                              and canvas.shape[2] == 3
-                              and canvas.flags.c_contiguous) else None
-    if lib is not None:
-        lib.sr_scatter_tiles(np.ascontiguousarray(results), count, start,
-                             nx, tf, canvas, crop_h, crop_w)
+    ``canvas`` (crop_h, crop_w, C), cropping at its far edges: one run of
+    `scatter_runs`."""
+    scatter_runs(results, [(0, results.shape[0], start, nx, canvas)])
+
+
+def _scatter_threads(nbytes: int) -> int:
+    """The native scatter's threads for a call that writes ``nbytes``:
+    one a whole 4 MiB, at most half the host's cores, so a call under 8
+    MiB runs on the caller's thread alone.  (On an 8-core host, writing
+    fresh output pages stopped scaling past 4 threads, for a ×4 frames
+    call and a 4K request alike: `scripts/scatter_rate.py` times it.)"""
+    return max(1, min((os.cpu_count() or 1) // 2, nbytes >> 22))
+
+
+def scatter_runs(results: np.ndarray, runs) -> None:
+    """Write HR tiles into output canvases.  ``runs`` lists (j0, count,
+    start, nx, canvas): tiles [j0, j0 + count) of ``results`` (n, tf, tf,
+    C) are tiles start.. of ``canvas``'s row-major grid of ``nx`` tiles a
+    row, cropped at the canvas's (crop_h, crop_w, C) far edges.
+
+    Every run goes into one native call, which copies the tiles' rows on
+    `_scatter_threads` threads (the caller's among them; ctypes lets go
+    of the interpreter lock meanwhile), for any dtype, where each canvas
+    is C-contiguous with the results' dtype and channels.  Otherwise, or
+    where the library cannot be built, a numpy copy per tile, inside the
+    span ``scatter.fallback``."""
+    if not runs:
         return
-    for j in range(count):
-        iy, ix = divmod(start + j, nx)
-        y0, x0 = iy * tf, ix * tf
-        rows = max(0, min(crop_h - y0, tf))
-        cols = max(0, min(crop_w - x0, tf))
-        if rows and cols:
-            canvas[y0:y0 + rows, x0:x0 + cols] = results[j, :rows, :cols]
+    c = results.shape[3]
+    lib = _load("tileio") if all(
+        cv.dtype == results.dtype and cv.ndim == 3 and cv.shape[2] == c
+        and cv.flags.c_contiguous and cv.flags.writeable
+        for *_, cv in runs) else None
+    tf = results.shape[1]
+    if lib is not None:
+        res = np.ascontiguousarray(results)
+        recs = np.array([(j0, cnt, start, nx, cv.shape[0], cv.shape[1],
+                          cv.ctypes.data)
+                         for j0, cnt, start, nx, cv in runs], np.int64)
+        tile_bytes = tf * tf * c * res.itemsize
+        threads = _scatter_threads(int(recs[:, 1].sum()) * tile_bytes)
+        lib.sr_scatter_runs(res.ctypes.data, tf, c * res.itemsize, recs,
+                            len(recs), threads)
+        return
+    with span("scatter.fallback"):
+        for j0, cnt, start, nx, canvas in runs:
+            crop_h, crop_w = canvas.shape[:2]
+            for j in range(cnt):
+                iy, ix = divmod(start + j, nx)
+                y0, x0 = iy * tf, ix * tf
+                rows = max(0, min(crop_h - y0, tf))
+                cols = max(0, min(crop_w - x0, tf))
+                if rows and cols:
+                    canvas[y0:y0 + rows, x0:x0 + cols] = \
+                        results[j0 + j, :rows, :cols]
 
 
 # Pillow's default decompression-bomb limit, used when Pillow is absent.

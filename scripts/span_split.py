@@ -15,7 +15,10 @@ result (its per-layer metrics and breakdown as they are), then
 loop's shares of the slice (gather; scatter less the nested
 ``batch.on_image_done``; launch; the host blocked on the card,
 ``slot_wait`` + ``fetch_wait``; the outputs' allocation,
-``tiled.outputs``); ``tiled.prepare`` ms a request; the native
+``tiled.outputs``); the scatter's GB/s (the useful HR bytes, u8, over
+the seconds of ``chunk.scatter`` less the callback) and the count of
+``scatter.fallback`` spans (scatters that missed the native path);
+``tiled.prepare`` ms a request; the native
 encoder's HR MPix/s (when every request's encode ran natively);
 the slice's seconds a call or request; the idle gaps labelled by the
 innermost span of either kind; and the count of the card's events that
@@ -73,7 +76,10 @@ class KeepSlice(tracing.Slice):
         return reading
 
 
-def split(r) -> dict:
+def split(r, factor=None) -> dict:
+    """The program's spans in reading ``r``; ``factor`` gives a frames
+    cell's HR bytes from its LR pixels (a request cell counts HR pixels
+    itself)."""
     def tot(name):
         return sum(e - s for n, s, e in r.program if n == PRE + name)
 
@@ -84,12 +90,18 @@ def split(r) -> dict:
                sum(1 for n, _, _ in r.kernels + r.copies
                    if n.startswith(PRE)),
            "device_annotations": r.annotations}
+    scatter_s = tot("chunk.scatter") - tot("batch.on_image_done")
+    hr_px = (r.counts.get("hr_px")
+             or r.counts.get("lr_px", 0) * (factor or 0) ** 2)
+    out.update(scatter_fallbacks=sum(1 for n, _, _ in r.program
+                                     if n == PRE + "scatter.fallback"),
+               scatter_gb_s=(3 * hr_px / scatter_s / 1e9
+                             if hr_px and scatter_s > 0 else None))
     pct = (lambda s: 100.0 * s / r.slice_s) if r.slice_s > 0 else None
     if pct and r.counts.get("calls"):
         out.update(
             gather_pct=pct(tot("chunk.gather")),
-            scatter_pct=pct(tot("chunk.scatter")
-                            - tot("batch.on_image_done")),
+            scatter_pct=pct(scatter_s),
             launch_pct=pct(tot("chunk.launch")),
             outputs_pct=pct(tot("tiled.outputs")),
             card_wait_pct=pct(tot("chunk.slot_wait")
@@ -164,13 +176,15 @@ def main() -> int:
 
     harness.load_module = load_module
     import torch
+    factor = harness.cell_files(harness.benchmark(),
+                                a.workload)[1]["factor"]
     for turn in turns:
         for mod in sites:
             mod.span = profiling.span if turn == "on" else (
                 lambda name: profiling._NULL)
         result = harness.run_cell(a.workload, a.seed, a.seconds, True, **kw)
         result.update(spans=turn, seed=a.seed, torch=torch.__version__,
-                      split=split(got["reading"]))
+                      split=split(got["reading"], factor))
         print(json.dumps(result), flush=True)
     return 0
 

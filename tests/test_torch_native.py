@@ -8,7 +8,8 @@ against its own numpy and Pillow paths.
   palette and grey images, and declines 16-bit samples, garbage,
   truncated files and decompression bombs (the caller's fallback then
   applies Pillow's own policy).
-- The native f32 gather and scatter equal the numpy path byte for byte.
+- The native f32 gather and the native scatter (any dtype, inline or on
+  several threads) equal the numpy path byte for byte.
 - Concurrent first builds give every process a loadable library, and a
   failed compile prints the compiler's error.
 """
@@ -161,36 +162,88 @@ def test_imageio_routes_png_through_native(png_ok, tmp_path):
     assert imageio.load_image_u8(fake).shape == (16, 16, 3)
 
 
-@pytest.mark.parametrize("shape,tile", [((23, 31, 3), 8), ((5, 40, 3), 16),
-                                        ((1, 1, 3), 4)])
+# The first three keep their ids from before the scatter took any dtype;
+# the "threads" canvases are large enough for `_scatter_threads` to split.
+@pytest.mark.parametrize("shape,tile,dtype", [
+    pytest.param((23, 31, 3), 8, np.float32, id="shape0-8"),
+    pytest.param((5, 40, 3), 16, np.float32, id="shape1-16"),
+    pytest.param((1, 1, 3), 4, np.float32, id="shape2-4"),
+    pytest.param((23, 31, 3), 8, np.uint8, id="u8-inline"),
+    pytest.param((601, 633, 3), 128, np.uint8, id="u8-threads"),
+    pytest.param((301, 317, 3), 64, np.float32, id="f32-threads")])
 def test_native_gather_scatter_equal_numpy(tileio_ok, monkeypatch, shape,
-                                           tile):
-    img = rng(11).random(shape, dtype=np.float32)
+                                           tile, dtype):
     ny, nx = -(-shape[0] // tile), -(-shape[1] // tile)
+    if dtype == np.uint8:
+        img = rng(11).integers(0, 256, shape, dtype=np.uint8)
+        res = rng(12).integers(0, 256, (ny * nx, tile * 3, tile * 3, 3),
+                               dtype=np.uint8)
+    else:
+        img = rng(11).random(shape, dtype=np.float32)
+        res = rng(12).random((ny * nx, tile * 3, tile * 3, 3),
+                             dtype=np.float32)
     side = tile + 14
-    res = rng(12).random((ny * nx, tile * 3, tile * 3, 3), dtype=np.float32)
-    canvas = np.zeros((shape[0] * 3, shape[1] * 3, 3), np.float32)
+    # ragged on both sides, prefilled with a sentinel; tile 1 is never
+    # written, so its sentinel must stay
+    canvas = np.full((shape[0] * 3, shape[1] * 3, 3), 7, dtype)
+    threads = native._scatter_threads(res[2:].nbytes)
+    assert (threads > 1) == (shape[0] > 300 and (os.cpu_count() or 1) > 3)
     runs = {}
     for path in ("native", "numpy"):
         if path == "numpy":
             monkeypatch.setattr(native, "_load_build", lambda name: None)
-        out = (np.full((ny * nx + 2, side, side, 3), 7.0, np.float32),
-               np.full((ny * nx + 2, side, side, 3), 7.0, np.float32),
-               np.full((ny * nx + 2, side, side, 1), 7.0, np.float32))
+        out = tuple(np.full((ny * nx + 2, side, side, ch), 7, dtype)
+                    for ch in (3, 3, 1))
         fresh = native.gather_tiles_range(img, tile, 7, nx, 1, ny * nx)
         into = native.gather_tiles_range(img, tile, 7, nx, 1, ny * nx,
                                          out=out)
         c = canvas.copy()
-        native.scatter_tiles(res[:2], 0, nx, c)
+        native.scatter_tiles(res[:1], 0, nx, c)
         native.scatter_tiles(res[2:], 2, nx, c)
         runs[path] = (fresh, into, c)
     (fa, ia, ca), (fb, ib, cb) = runs["native"], runs["numpy"]
     for a, b, c_, d in zip(fa, fb, ia, ib):
         assert a.tobytes() == b.tobytes() == c_.tobytes() == d.tobytes()
     assert ca.tobytes() == cb.tobytes()
+    if nx > 1:
+        tf = tile * 3
+        assert (ca[:tf, tf:2 * tf] == 7).all()
+        assert not (ca[:tf, :tf] == 7).all()
     want = j_native.gather_tiles_range(img, tile, 7, nx, 1, ny * nx)
     for a, b in zip(runs["native"][0], want):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_scatter_runs_over_canvases_equal_numpy(tileio_ok, monkeypatch,
+                                                dtype):
+    """One call writes runs into several canvases, from any offset of the
+    results, as `tiled_sr_batch` drains a chunk that spans images, on any
+    number of threads; a canvas of another dtype, or one not
+    C-contiguous, takes the numpy loop in the same call's place."""
+    tf, nx = 12, 3
+    res = rng(14).integers(0, 256, (9, tf, tf, 3)).astype(dtype)
+    shapes = [(20, 30), (12, 12), (25, 36)]          # crop_h x crop_w
+
+    def scatter():
+        cs = [np.full(s + (3,), 7, dtype) for s in shapes]
+        native.scatter_runs(res, [(0, 2, 4, nx, cs[0]), (2, 1, 0, 1, cs[1]),
+                                  (3, 6, 0, nx, cs[2])])
+        return b"".join(c.tobytes() for c in cs)
+
+    got = scatter()
+    for t in (2, 3, 7, 1000):       # every split of the rows, even past them
+        monkeypatch.setattr(native, "_scatter_threads", lambda nbytes: t)
+        assert scatter() == got
+    odd = np.full((20, 30, 3), 7, np.float64)
+    strided = np.full((20, 60, 3), 7, dtype)[:, ::2]
+    for cv in (odd, strided):
+        native.scatter_runs(res, [(0, 2, 4, nx, cv)])    # tiles (1,1), (1,2)
+        np.testing.assert_array_equal(cv[12:, 12:24], res[0, :8])
+        np.testing.assert_array_equal(cv[12:, 24:], res[1, :8, :6])
+        assert (cv[:12] == 7).all() and (cv[:, :12] == 7).all()
+    monkeypatch.setattr(native, "_load_build", lambda name: None)
+    assert scatter() == got
 
 
 def test_u8_gather_equals_jax():
@@ -297,3 +350,19 @@ def test_codec_without_libpng_keeps_the_native_encoder(png_ok, tmp_path,
         data = mod.png_encode(img, threads=threads)
         assert data == native.png_encode(img, threads=threads)
     assert mod.png_decode(data) is None
+
+
+def test_scatter_rate_script_variants_write_the_same_bytes(tileio_ok):
+    """`scripts/scatter_rate.py` (the output write timed on the host)
+    checks that its variants write the same bytes before it times them."""
+    import json
+    p = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts", "scatter_rate.py"),
+         "--lr", "300x500", "--factor", "3", "--frames", "2", "--threads",
+         "1,3", "--rounds", "1"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    lines = [json.loads(ln) for ln in p.stdout.splitlines()]
+    assert [ln["variant"] for ln in lines] == [
+        "zeros+numpy", "empty+numpy", "empty+1", "empty+3", "empty+rule"]
+    assert all(ln["gb_s"] > 0 and len(ln["s_a_call"]) == 1 for ln in lines)

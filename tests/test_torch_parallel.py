@@ -258,3 +258,64 @@ def test_dp_step_of_one_rank_is_the_plain_step():
     assert runs[0][0] == runs[1][0]
     for k in tree:
         assert runs[0][1][k].tobytes() == runs[1][1][k].tobytes(), k
+
+
+# --- every output byte is written: the outputs come from np.empty -------
+
+class _FilledEmpty:
+    """numpy, but for `empty`, which fills with ``fill``."""
+
+    def __init__(self, fill):
+        self.fill, self.shapes = fill, []
+
+    def __getattr__(self, name):
+        return getattr(np, name)
+
+    def empty(self, shape, dtype=float):
+        self.shapes.append(tuple(shape))
+        return np.full(shape, self.fill, dtype)
+
+
+def _f32(img):
+    return img.astype(np.float32) / 255.0
+
+
+def _mult3(img):
+    return img[:img.shape[0] - img.shape[0] % 3,
+               :img.shape[1] - img.shape[1] % 3]
+
+
+# chunk 5 over SHAPES' 12 + 4 + 12 tiles at tile 18: chunks span images
+_KW = dict(tile=18, chunk=5, device="cpu")
+COVER = {
+    "tiled_sr-u8": lambda p: [tiling.tiled_sr(p, images()[0], 3, **_KW)],
+    "tiled_sr-f32": lambda p: [tiling.tiled_sr(p, _f32(images()[2]), 3,
+                                               **_KW)],
+    "tiled_sr-u8-fast": lambda p: [tiling.tiled_sr(
+        p, images()[1], 3, compute_dtype=torch.bfloat16, **_KW)],
+    "batch-u8": lambda p: tiling.tiled_sr_batch(p, images(), 3, **_KW),
+    "batch-f32": lambda p: tiling.tiled_sr_batch(
+        p, [_f32(im) for im in images()], 3, **_KW),
+    "batch-u8-mesh": lambda p: tiling.tiled_sr_batch(
+        p, images(), 3, mesh=cpu_mesh(2), tile=18, chunk=5),
+    "simple-bilinear": lambda p: [tiling.tiled_simple(
+        images()[0], 3, mode="bilinear", **_KW)],
+    "simple-downsample": lambda p: [tiling.tiled_simple(
+        _mult3(images()[2]), 3, mode="downsample", **_KW)],
+}
+
+
+@pytest.mark.parametrize("case", list(COVER))
+def test_tile_grid_writes_every_output_byte(anime, monkeypatch, one_thread,
+                                            case):
+    """The outputs come from `np.empty`: filled with 0 and then with 255
+    in its place, every mode gives the same bytes, so the tile scatter
+    writes each of them."""
+    got = []
+    for fill in (0, 255):
+        filled = _FilledEmpty(fill)
+        monkeypatch.setattr(tiling, "np", filled)
+        outs = COVER[case](anime)
+        assert all(o.shape in filled.shapes for o in outs)
+        got.append([(o.dtype, o.shape, o.tobytes()) for o in outs])
+    assert got[0] == got[1]

@@ -128,6 +128,31 @@ def test_tiled_sr_batch_spans_nest_the_callback(anime):
     _no_same_name_nesting(spans)
 
 
+@pytest.mark.parametrize("path", ["native", "numpy"])
+def test_scatter_fallback_span_only_on_the_numpy_path(anime, monkeypatch,
+                                                      path):
+    """``scatter.fallback`` opens inside each ``chunk.scatter`` that takes
+    the numpy loop, and never where the native scatter runs."""
+    if path == "native" and not native.available():
+        pytest.skip("the native tile library did not build here: "
+                    + native.build_error("tileio"))
+    if path == "numpy":
+        monkeypatch.setattr(native, "_load_build", lambda name: None)
+    imgs = [_img(10, 30, 40), _img(11, 17, 16)]
+    kw = dict(tile=TILE, chunk=CHUNK, device="cpu")
+    plain = tiling.tiled_sr_batch(anime, imgs, 3, **kw)
+    outs, spans = _traced(lambda: tiling.tiled_sr_batch(anime, imgs, 3,
+                                                        **kw))
+    assert [o.tobytes() for o in outs] == [o.tobytes() for o in plain]
+    n = _n_chunks(*(im.shape[:2] for im in imgs))
+    assert _count(spans, "chunk.scatter") == n
+    assert _count(spans, "scatter.fallback") == (n if path == "numpy" else 0)
+    scatters = [(s, e) for name, s, e in spans if name == "chunk.scatter"]
+    for name, s, e in spans:
+        if name == "scatter.fallback":
+            assert any(a <= s and e <= b for a, b in scatters)
+
+
 def test_png_encode_span_counts_native_encodes_only():
     if not native.png_available():
         pytest.skip("the native PNG encoder is not available here")
@@ -228,6 +253,23 @@ def test_split_reads_the_chunk_loop_shares():
     assert [(g[0], g[2]) for g in out["idle_gaps"]] == [
         ("rusty_sr.chunk.scatter", 1), ("rusty_sr.chunk.launch", 1)]
     assert out["kernels_named_rusty_sr"] == 0
+    assert out["scatter_fallbacks"] == 0
+    assert out["scatter_gb_s"] is None       # no factor, no HR bytes
+
+
+def test_split_reads_the_scatter_rate_and_fallbacks():
+    split = _split_module().split
+    counts = {"calls": 1, "lr_px": 1_000_000}
+    program = [("rusty_sr.chunk.scatter", 0.0, 0.5),
+               ("rusty_sr.scatter.fallback", 0.1, 0.2),
+               ("rusty_sr.batch.on_image_done", 0.3, 0.4),
+               ("rusty_sr.chunk.scatter", 1.0, 1.2),
+               ("rusty_sr.scatter.fallback", 1.0, 1.1)]
+    out = split(_reading(counts, program), factor=4)
+    assert out["scatter_fallbacks"] == 2
+    # 16 M HR pixels, 3 bytes each, over 0.6 s of scatter less callback
+    assert out["scatter_gb_s"] == pytest.approx(3 * 16e6 / 0.6 / 1e9)
+    assert out["scatter_pct"] == pytest.approx(30.0)
 
 
 def test_split_reads_prepare_and_encode_per_request():
@@ -243,6 +285,7 @@ def test_split_reads_prepare_and_encode_per_request():
     assert out["slice_ms_per_request"] == pytest.approx(1000.0)
     # an encode that did not run natively: no rate
     assert split(_reading(counts, prep + enc[:1]))["encode_mpix_s"] is None
+    assert out["scatter_gb_s"] is None       # no scatter span
 
 
 def test_split_script_on_a_tiny_cell():
@@ -257,4 +300,7 @@ def test_split_script_on_a_tiny_cell():
     counts = {k: c for k, (c, _) in on["split"]["spans"].items()}
     assert counts["rusty_sr.chunk.gather"] == counts["rusty_sr.chunk.scatter"]
     assert counts["rusty_sr.tiled.prepare"] >= 1
+    assert on["split"]["scatter_gb_s"] > 0
+    assert on["split"]["scatter_fallbacks"] == (
+        0 if native.available() else counts["rusty_sr.chunk.scatter"])
     assert off["split"]["spans"] == {}
