@@ -104,6 +104,15 @@ Phases, each fatal on failure:
    with the packed and default flat tiers; ``torch._int_mm`` at the int8
    stages' shapes bit-identical to the plain integer product, timed
    beside it and its bound (a JSON line ``{"int8_products": ...}``);
+4g. SwinIR (`swinir_phase`): ``window_attn_kernel`` against its plain
+   version at the SwinIR cell's 544x960 tokens, shift 0 and 4 (max 2e-2,
+   mean 2e-3); `upscale_batch` on four 960x540 frames with seeded
+   SwinIR-M x4 weights on the fast tier, the launch count set to 0
+   before it (36 a chunk of the default one frame), frame 0 within the
+   cell's code-gap limits of
+   the reference's float32 upscale; the kernel and its plain version
+   timed in turns at each shift beside its bound (1,440 bytes a token
+   at 3.35 TB/s);
 5. time each kernel, its plain version and, where one exists, the one
    PyTorch call for the same function (cuDNN's bf16 conv for the conv
    stage) with CUDA events, in turns, beside its bound (the larger of
@@ -121,7 +130,8 @@ Phases, each fatal on failure:
    the CLI runs on the host clock.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel (the conv stage once per stage of each fast tier) with
+lists each kernel (the conv stage once per stage of each fast tier, the
+window attention once per shift) with
 its launches (summed over the CLI, serving, training, multi-device and
 variants paths above), error, times and bound.
 Without a CUDA device, or outside the repository, it
@@ -1741,6 +1751,90 @@ def variants_phase(tiling, shuffle, trunk, imageio, native, anime, lr,
     return got
 
 
+def swinir_phase(card, frames: int = 4):
+    """Phase 4g, SwinIR-M x4 on the batch path and its attention kernel,
+    at the shapes of the benchmark's SwinIR cell (960x540 frames, padded
+    to 544x960 tokens, 6 heads of 30): ``window_attn_kernel`` against
+    `window_attn_reference` on the same bf16 inputs at shift 0 and 4 (2e-2
+    largest, 2e-3 mean, as `tests/test_torch_swinir.py`); `upscale_batch`
+    with seeded SwinIR-M weights on ``frames`` frames, fast tier, with the
+    launch count set to 0 before it (36 launches a chunk, one frame a
+    chunk by default), its first
+    frame against the reference's float32 upscale within the cell's
+    limits (`portbench/limits/swinir_x4_frames_fast.json`); then the
+    kernel and its plain version timed in turns at each shift, beside its
+    bound.  Returns {"launches": n, "err": worst max gap, "rows": [(shift,
+    kernel ms, plain ms, bound ms, bound by)]}."""
+    import torch
+    from portbench import images, swinir_flops
+    from portbench.harness import load_json
+    from portbench.reference import check
+    from portbench.reference import swinir as ref
+    from rusty_sr_tpu_torch.api import upscale_batch
+    from rusty_sr_tpu_torch.models import swinir
+    from rusty_sr_tpu_torch.ops.cuda import window_attn as wa
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_json(os.path.join(root, "portbench/configs/swinir_m_x4.json"))
+    limits = load_json(os.path.join(
+        root, "portbench/limits/swinir_x4_frames_fast.json"))
+    dev = torch.device("cuda")
+    hp, wp, c = 544, 960, cfg["embed_dim"]
+    heads = cfg["num_heads"][0]
+    gen = torch.Generator().manual_seed(SEED)
+    qkv = torch.randn(1, hp * wp, 3 * c, generator=gen).to(dev, torch.bfloat16)
+    bias = wa.relative_bias(torch.randn(225, heads, generator=gen).to(dev))
+    worst, rows = 0.0, []
+    for shift in (0, 4):
+        d = (wa.window_attn(qkv, bias, shift, hp, wp).float()
+             - wa.window_attn_reference(qkv.float(), bias, shift, hp, wp)
+             ).abs()
+        mx, mean = float(d.max()), float(d.mean())
+        print(f"window_attn, {hp}x{wp} tokens, {heads} heads of "
+              f"{c // heads}, shift {shift}: max {mx:.2e}, mean {mean:.2e} "
+              "against the plain version")
+        if mx > 2e-2 or mean > 2e-3:
+            fail(f"window_attn at shift {shift}: max {mx}, mean {mean}")
+        worst = max(worst, mx)
+
+    tree = ref.draw_weights(2 ** 31 + SEED, cfg)
+    lr = images.pictures(2 ** 31 + SEED, "frames", frames, 540, 960,
+                         device=dev).cpu().numpy()
+    wa.LAUNCHES = 0
+    outs = upscale_batch(list(lr), weights=tree, factor=4, fast=True,
+                         device=dev)
+    torch.cuda.synchronize()
+    launches = wa.LAUNCHES
+    # one launch a block for each chunk of the default size
+    want = sum(cfg["depths"]) * -(-frames // swinir.DEFAULT_CHUNK)
+    if launches != want:
+        fail(f"upscale_batch with SwinIR weights launched window_attn "
+             f"{launches} times for {frames} frames, not {want}")
+    p = {k: v.to(dev) for k, v in tree.items()}
+    gaps = check.image_gaps(outs[0], ref.upscale_u8(p, lr[0], cfg, dev))
+    print(f"upscale_batch, SwinIR-M x4, {frames} 960x540 frames (fast): "
+          f"{launches} window_attn launches; frame 0 against the reference: "
+          f"{gaps} (limits {limits})")
+    if (gaps["max_code_gap"] > limits["max_code_gap"]
+            or gaps["mean_code_gap"] > limits["mean_code_gap"]):
+        fail(f"SwinIR frame 0 is {gaps} from the reference")
+    del p, outs, tree
+
+    tokens = hp * wp
+    b_ms, b_by = bound(swinir_flops.attn_flop_per_token(cfg) * tokens,
+                       swinir_flops.attn_bytes_per_token(cfg) * tokens)
+    for shift in (0, 4):
+        k_ms, p_ms, _ = time_in_turns(
+            lambda: wa.window_attn_reference(qkv, bias, shift, hp, wp),
+            lambda: wa.window_attn(qkv, bias, shift, hp, wp))
+        rows.append((shift, k_ms, p_ms, b_ms, b_by))
+        print(f"window_attn, one {hp}x{wp} frame, shift {shift}: kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms "
+              f"({b_by}; {b_ms / k_ms:.1%} reached) per call (CUDA events, "
+              f"2 x 10 calls each; {card})")
+    return {"launches": launches, "err": worst, "rows": rows}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2307,6 +2401,10 @@ def main() -> int:
     for key, v in variants["shapes"].items():
         shape_launches[key] = shape_launches.get(key, 0) + v
 
+    # 4g. SwinIR through upscale_batch, and its attention kernel checked
+    # and timed at the SwinIR cell's shapes.
+    swin = swinir_phase(card)
+
     # 5. Times at the main path's shapes, in turns.  The trunk's work on a
     # 24 x 256^2 chunk: stage extents 252, 248, 246, 244, 242 (the halo
     # shrinks by each conv's radius); K and N per stage.  Its bound: the
@@ -2594,6 +2692,14 @@ def main() -> int:
             else "scripts/mosaic_probe4.py:49",
             shape_launches.get(stage_shape[name], 0), fused_err[name],
             (k_ms, p_ms), (b_ms, b_by), l_ms))
+    # Not a TPU kernel: SwinIR's attention (the JAX package runs none),
+    # with its launches in phase 4g.
+    for shift, k_ms, p_ms, b_ms, b_by in swin["rows"]:
+        rows.append(row(f"window_attn shift {shift}",
+                        "rusty_sr_tpu_torch/csrc/window_attn.cu",
+                        "none (not a TPU kernel)",
+                        swin["launches"], swin["err"], (k_ms, p_ms),
+                        (b_ms, b_by)))
     # Not a TPU kernel: the int8 engine's products (the JAX package's XLA
     # dot_general) on torch._int_mm, with their launches in phase 4f.
     print(json.dumps({"int8_products": [

@@ -19,22 +19,31 @@ import torch
 from rusty_sr_tpu_torch import params as params_lib
 
 
-def _resolve_params(weights: Union[str, dict], factor: int) -> dict:
+def _resolve_params(weights: Union[str, dict],
+                    factor: Optional[int]) -> tuple:
+    """(tree, factor): the weights by name, path or tree, and the factor
+    they run at (`params.weights_factor`)."""
     if isinstance(weights, dict):
-        return weights
-    if weights in params_lib.BUILTIN_WEIGHTS:
-        return params_lib.load_builtin(weights, factor)
-    return params_lib.load_rsr_file(weights, factor)
+        tree = weights
+    elif weights in params_lib.BUILTIN_WEIGHTS:
+        tree = params_lib.load_builtin(weights, factor or 3)
+    else:
+        tree = params_lib.load_weights_file(weights, factor or 3)
+    return tree, params_lib.weights_factor(tree, factor)
 
 
 def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
-            factor: int = 3, *, fast: bool = False, engine: str = "xla",
-            tile: int = 242, chunk: Optional[int] = None,
-            device="cuda") -> np.ndarray:
+            factor: Optional[int] = None, *, fast: bool = False,
+            engine: str = "xla", tile: int = 242,
+            chunk: Optional[int] = None, device="cuda") -> np.ndarray:
     """Upscale an (H,W,3) sRGB image by ``factor``.
 
     ``weights``: a builtin name ('imagenet', 'imagenetlinear', 'anime'),
-    a path to a `.rsr` file, or a parameter tree.  ``engine``: 'xla' (the
+    a path to a `.rsr` file, a parameter tree, or SwinIR weights (a state
+    dict in SwinIR's layout, or a path to its ``.pth``), which run as
+    `upscale_batch` runs them, on the xla engine.  ``factor``: 3 for the
+    reference's net when None; SwinIR weights upscale by their own scale
+    and raise for another.  ``engine``: 'xla' (the
     default; the trunk as conv stages, the u8 path), 'fused' (the trunk
     as one kernel) or 'int8' (the trunk's merged stages on calibrated
     int8 products; the JAX package's quantisation experiment, which its
@@ -47,9 +56,13 @@ def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
     result is float32.  Float input must already be finite sRGB in [0, 1], and
     anything else raises.
     """
-    from rusty_sr_tpu_torch.parallel.tiling import tiled_sr
+    from rusty_sr_tpu_torch.models import swinir
+    from rusty_sr_tpu_torch.parallel.tiling import tiled_sr, tiled_sr_batch
 
-    tree = _resolve_params(weights, factor)
+    tree, factor = _resolve_params(weights, factor)
+    if swinir.is_swinir(tree) and engine != "xla":
+        raise ValueError(f"SwinIR runs on the 'xla' engine only, not "
+                         f"{engine!r}")
     image = np.asarray(image)
     if image.dtype == np.uint8:
         if engine not in ("xla", "int8"):
@@ -64,13 +77,18 @@ def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
                 "float input must be finite sRGB in [0, 1] (got range "
                 f"[{image.min():.3g}, {image.max():.3g}]); pass uint8 "
                 "pixels directly or divide by 255")
+    if swinir.is_swinir(tree):
+        return tiled_sr_batch(tree, [image], factor, chunk=chunk,
+                              device=device, compute_dtype=torch.bfloat16
+                              if fast else None)[0]
     return tiled_sr(tree, image, factor, tile=tile, chunk=chunk,
                     engine=engine, device=device,
                     compute_dtype=torch.bfloat16 if fast else None)
 
 
 def upscale_batch(images, weights: Union[str, dict] = "imagenet",
-                  factor: int = 3, *, fast: bool = False, tile: int = 242,
+                  factor: Optional[int] = None, *, fast: bool = False,
+                  tile: int = 242,
                   chunk: Optional[int] = None, mesh=None,
                   on_image_done=None, release_outputs: bool = False,
                   device="cuda") -> list:
@@ -85,10 +103,14 @@ def upscale_batch(images, weights: Union[str, dict] = "imagenet",
     ``release_outputs=True`` the returned list holds None for the images
     delivered.  ``mesh`` (`parallel.mesh.make_mesh`) splits each chunk of
     tiles over its data axis's devices in place of ``device``, with the
-    same outputs.  ``device`` as in `upscale`.
+    same outputs.  ``weights`` and ``factor`` as in `upscale`: SwinIR
+    weights run each frame whole as one tile of the chunk loop, frames of
+    one size to a chunk, ``chunk`` frames to it (by default as many as an
+    eighth of the card's memory holds, at most 4).  ``device`` as in
+    `upscale`.
     """
     from rusty_sr_tpu_torch.parallel.tiling import tiled_sr_batch
-    tree = _resolve_params(weights, factor)
+    tree, factor = _resolve_params(weights, factor)
     return tiled_sr_batch(tree, [np.asarray(im) for im in images], factor,
                           tile=tile, chunk=chunk, mesh=mesh,
                           compute_dtype=torch.bfloat16 if fast else None,

@@ -54,8 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["imagenet", "imagenetlinear", "anime", "bilinear"],
                    help="which built-in parameters to use with the neural net")
     p.add_argument("-c", "--custom", metavar="PARAMETER_FILE",
-                   help="custom parameter file (.rsr) to use with the "
-                        "neural net")
+                   help="custom parameter file to use with the neural net: "
+                        "a .rsr file, or a SwinIR checkpoint (.pth, whose "
+                        "own scale sets the factor)")
     p.add_argument("-d", "--downsample", action="store_true",
                    help="perform downscaling rather than upscaling")
     p.add_argument("-f", "--factor", type=int, default=3,
@@ -99,7 +100,7 @@ def build_watch_parser() -> argparse.ArgumentParser:
                    choices=["imagenet", "imagenetlinear", "anime"],
                    help="which built-in parameters to use")
     w.add_argument("-c", "--custom", metavar="PARAMETER_FILE",
-                   help="custom parameter file (.rsr)")
+                   help="custom parameter file (.rsr, or a SwinIR .pth)")
     w.add_argument("-f", "--factor", type=int, default=3)
     w.add_argument("--fast", action="store_true",
                    help="the fast tier (bf16 trunk), as for single images")
@@ -335,11 +336,15 @@ def _run_simple(args, img_u8, device) -> int:
 
 def _load_weights(args):
     """The parameter tree of ``-c`` or ``-p`` (imagenet by default), or
-    the exit code after printing why it cannot be loaded."""
+    the exit code after printing why it cannot be loaded.  A SwinIR
+    checkpoint sets ``args.factor`` to its own scale."""
     from rusty_sr_tpu_torch import params as params_lib
     try:
         if args.custom:
-            return params_lib.load_rsr_file(args.custom, args.factor)
+            tree = params_lib.load_weights_file(args.custom, args.factor)
+            if params_lib.is_checkpoint_path(args.custom):
+                args.factor = params_lib.weights_factor(tree)
+            return tree
         return params_lib.load_builtin(args.parameters or "imagenet",
                                        args.factor)
     except OSError as e:
@@ -355,7 +360,8 @@ def _load_weights(args):
 
 def run_upscale(args) -> int:
     import torch
-    from rusty_sr_tpu_torch.parallel.tiling import tiled_sr
+    from rusty_sr_tpu_torch.models import swinir
+    from rusty_sr_tpu_torch.parallel.tiling import tiled_sr, tiled_sr_batch
     from rusty_sr_tpu_torch.utils.imageio import (
         DECODE_ERRORS, check_codec, load_image_u8, save_image, save_image_u8)
 
@@ -422,7 +428,15 @@ def run_upscale(args) -> int:
     img = img_u8 if args.engine == "xla" else \
         img_u8.astype(np.float32) / 255.0
     cd = torch.bfloat16 if args.fast else None
-    if mesh is not None:
+    if swinir.is_swinir(tree):
+        if args.engine != "xla":
+            print("\nerror: SwinIR weights run on --engine xla only",
+                  file=sys.stderr)
+            return 2
+        out = tiled_sr_batch(tree, [img], args.factor, chunk=args.chunk,
+                             device=device, compute_dtype=cd,
+                             mesh=mesh)[0]
+    elif mesh is not None:
         from rusty_sr_tpu_torch.parallel.mesh import tiled_sr_sharded
         out = tiled_sr_sharded(tree, img, mesh, args.factor, tile=args.tile,
                                chunk=args.chunk, compute_dtype=cd)

@@ -1,5 +1,5 @@
 """The SR network and its weight merging, as plain PyTorch; the int8
-trunk (`quant`)."""
+trunk (`quant`); SwinIR (`swinir`)."""
 from rusty_sr_tpu_torch.models.sr_net import (  # noqa: F401
     bilinear_apply,
     downsample_apply,

@@ -17,6 +17,11 @@ optionally split over the devices of a mesh's data axis; and of its
 - uint8 images stay uint8 from the gather to the output on the xla
   engine: the tiles go to the device as u8 and come back as u8 HR tiles,
   quantised by the epilogue kernel.
+- The tile and halo rules are the network's: the reference's net
+  (`models.sr_net`) takes the grid of ``tile``-sided tiles with the
+  HALO above; SwinIR (`models.swinir`, in `tiled_sr_batch`) takes whole
+  frames as its tiles, reflect-padded on the card to whole windows, with
+  no halo (`models.swinir.HALO`), frames of one size to a chunk.
 - Tiles run in chunks of a fixed size (the last chunk padded), and at
   most ``_MAX_INFLIGHT`` chunks are queued on the device before the
   oldest is fetched and scattered (`_run_chunks`, one loop for every
@@ -35,6 +40,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from rusty_sr_tpu_torch.models import swinir
 from rusty_sr_tpu_torch.ops.activations import belu
 from rusty_sr_tpu_torch.ops.color import linear_to_srgb, srgb_to_linear
 from rusty_sr_tpu_torch.ops.conv import bf16_split, conv2d_same
@@ -855,7 +861,11 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
 
     The tier is `tiled_sr`'s: exact for ``compute_dtype`` None, fast for
     bfloat16 (the packed tier on uint8 tiles of an even padded side, the
-    flat tier otherwise, with `tiled_sr`'s ``out16``).  The int8 engine is
+    flat tier otherwise, with `tiled_sr`'s ``out16``).  ``params`` may
+    also be a SwinIR state dict (`models.swinir`): each frame is then
+    one tile (`_whole_frames_batch`; ``tile`` and ``out16`` are not
+    used, ``chunk`` counts frames, and ``factor`` must be the weights'
+    scale).  The int8 engine is
     `tiled_sr`'s alone, as in the JAX package.  ``on_image_done(i,
     out)`` is called on the caller's thread, in ascending ``i``, once the
     chunk that holds image i's last tile is scattered, while later chunks
@@ -888,9 +898,12 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
     if tile < 1:
         raise ValueError(f"tile must be positive, got {tile}")
     devices = [torch.device(device)] if mesh is None else list(mesh.lanes)
-    chunk = _DEFAULT_CHUNK if chunk is None else chunk
-    if chunk < 1:
+    if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    if swinir.is_swinir(params):
+        return _whole_frames_batch(params, imgs, factor, chunk, fast,
+                                   devices, on_image_done, release_outputs)
+    chunk = _DEFAULT_CHUNK if chunk is None else chunk
     h = HALO
     metas = [(max(1, -(-im.shape[0] // tile)), max(1, -(-im.shape[1] // tile)))
              for im in imgs]                         # (ny, nx) per image
@@ -930,6 +943,87 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
                     res, g0, starts, metas, outs, cursor, remain,
                     on_image_done, release_outputs))
     return outs
+
+
+def _whole_frames_batch(params, imgs, factor: int, chunk, fast: bool,
+                        devices, on_image_done=None,
+                        release_outputs: bool = False) -> list:
+    """`tiled_sr_batch` for SwinIR weights: every frame one tile of the
+    chunk loop, with no halo.  Frames are grouped by size, in the order
+    each size first appears, and each group runs through `_run_chunks`:
+    ``chunk`` frames a chunk (None: `models.swinir.DEFAULT_CHUNK`, cut so
+    that the group's chunks come out as even as they can), gathered as
+    they are into the pinned slots; on the card the network pads each
+    to whole windows, runs, crops and quantises, and the HR frames come
+    back whole.  A frame's HR rows are the tiles of
+    `_drain_batch_chunk` (one tile a row, one row a tile's width), so the
+    native scatter writes them as it writes the other networks' tiles.
+    ``on_image_done`` fires in ascending index across the groups: a
+    frame that finishes before an earlier one of another size waits for
+    it.  uint8 frames give uint8; float frames in [0, 1] give float32,
+    clipped to [0, 1]."""
+    s = swinir.config_of(params)["upscale"]
+    if factor != s:
+        raise ValueError(f"the SwinIR weights upscale x{s}, not x{factor}")
+    with span("tiled.prepare"):
+        nets = [swinir.prepare(params, d, fast) for d in devices]
+    u8_io = imgs[0].dtype == np.uint8
+    dt = torch.uint8 if u8_io else torch.float32
+    with span("tiled.outputs"):     # each HR frame is written whole
+        outs = [np.empty((im.shape[0] * s, im.shape[1] * s, 3),
+                         np.uint8 if u8_io else np.float32) for im in imgs]
+    groups: dict = {}
+    for i, im in enumerate(imgs):
+        groups.setdefault(im.shape[:2], []).append(i)
+    ready, nxt = set(), [0]
+
+    def deliver(i: int) -> None:
+        ready.add(i)
+        while nxt[0] in ready:
+            j = nxt[0]
+            ready.discard(j)
+            if on_image_done is not None:
+                on_image_done(j, outs[j])
+            if release_outputs:
+                outs[j] = None
+            nxt[0] += 1
+
+    def runner(net):
+        if u8_io:
+            return lambda x: swinir.forward(net, x)
+        return lambda x: swinir.forward(net, x, to_u8=False).clamp_(0, 1)
+
+    runs = [runner(net) for net in nets]
+    for (h, w), idx in groups.items():
+        k = chunk or swinir.DEFAULT_CHUNK
+        _frame_group(devices, runs, imgs, idx, outs, s,
+                     -(-len(idx) // -(-len(idx) // k)), dt, deliver)
+    return outs
+
+
+def _frame_group(devices, runs, imgs, idx, outs, s: int, k: int, dt,
+                 deliver) -> None:
+    """The frames ``imgs[i]`` for i in ``idx``, all of one size, through
+    `_run_chunks` in chunks of ``k``; their HR frames into ``outs``, and
+    ``deliver(i)`` as each is scattered."""
+    n = len(idx)
+    h, w = imgs[idx[0]].shape[:2]
+    rows, row = h * s, w * s * 3
+    views = [outs[i].reshape(rows, 1, row) for i in idx]
+    starts = np.arange(n + 1) * rows
+    cursor, remain = [0], [rows] * n
+
+    def gather(g0, g1, bufs):
+        for j in range(g0, g1):
+            bufs[0][j - g0] = imgs[idx[j]]
+
+    def scatter(g0, res):       # a delivered frame's view is dropped
+        _drain_batch_chunk(res.reshape(-1, 1, 1, row), g0 * rows, starts,
+                           [(rows, 1)] * n, views, cursor, remain,
+                           lambda j, _: deliver(idx[j]), True)
+
+    _run_chunks(devices, n, k, [((k, h, w, 3), dt)], ((k, rows, w * s, 3), dt),
+                gather, runs, scatter)
 
 
 def _drain_batch_chunk(res: np.ndarray, g0: int, starts, metas, outs,

@@ -18,7 +18,10 @@ loop's shares of the slice (gather; scatter less the nested
 ``tiled.outputs``); the scatter's GB/s (the useful HR bytes, u8, over
 the seconds of ``chunk.scatter`` less the callback) and the count of
 ``scatter.fallback`` spans (scatters that missed the native path);
-``tiled.prepare`` ms a request; the native
+``tiled.prepare`` ms a request; SwinIR's stages (``swinir.embed``,
+``swinir.rstb``, ``swinir.upsample``: the host's seconds in each, as
+shares of the slice and ms a frame, and the residual groups' count);
+the native
 encoder's HR MPix/s (when every request's encode ran natively);
 the slice's seconds a call or request; the idle gaps labelled by the
 innermost span of either kind; and the count of the card's events that
@@ -107,6 +110,16 @@ def split(r, factor=None) -> dict:
             card_wait_pct=pct(tot("chunk.slot_wait")
                               + tot("chunk.fetch_wait")),
             slice_s_per_call=r.slice_s / r.counts["calls"])
+    stages = {k: tot("swinir." + k) for k in ("embed", "rstb", "upsample")}
+    if pct and any(stages.values()):
+        frames = r.counts.get("frames", 0)
+        out.update(
+            swinir_pct={k: pct(v) for k, v in stages.items()},
+            swinir_ms_per_frame={k: 1e3 * v / frames
+                                 for k, v in stages.items()}
+            if frames else None,
+            swinir_groups=sum(1 for m, _, _ in r.program
+                              if m == PRE + "swinir.rstb"))
     n = r.counts.get("requests", 0)
     if n:
         enc = [1 for m, _, _ in r.program if m == PRE + "codec.encode"]
@@ -149,9 +162,10 @@ def main() -> int:
     if set(turns) - {"on", "off"}:
         p.error("--spans takes on and off, comma-separated")
     tracing.Slice = KeepSlice
+    from rusty_sr_tpu_torch.models import swinir
     from rusty_sr_tpu_torch.parallel import tiling
     from rusty_sr_tpu_torch.utils import imageio, native, profiling
-    sites = (tiling, native, imageio)
+    sites = (tiling, native, imageio, swinir)
     kw = {}
     if a.tiny:
         sys.path.insert(0, os.path.join(ROOT, "portbench", "tests"))

@@ -288,6 +288,47 @@ def test_split_reads_prepare_and_encode_per_request():
     assert out["scatter_gb_s"] is None       # no scatter span
 
 
+def test_split_reads_the_swinir_stages():
+    split = _split_module().split
+    program = [("rusty_sr.swinir.embed", 0.0, 0.1)] + [
+        ("rusty_sr.swinir.rstb", 0.1 + 0.2 * g, 0.3 + 0.2 * g)
+        for g in range(6)] + [("rusty_sr.swinir.upsample", 1.3, 1.7)]
+    out = split(_reading({"calls": 1, "frames": 2}, program))
+    assert out["swinir_groups"] == 6
+    assert out["swinir_pct"] == {"embed": pytest.approx(5.0),
+                                 "rstb": pytest.approx(60.0),
+                                 "upsample": pytest.approx(20.0)}
+    assert out["swinir_ms_per_frame"]["rstb"] == pytest.approx(600.0)
+    # a slice without them reads none
+    assert "swinir_pct" not in split(_reading({"calls": 1}, []))
+
+
+def test_swinir_spans_per_stage():
+    """One ``swinir.embed``, one ``swinir.rstb`` a residual group and one
+    ``swinir.upsample`` a chunk, inside its ``chunk.launch``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import swinir_reference as ref
+    from rusty_sr_tpu_torch import api
+    cfg = dict(embed_dim=24, in_chans=3, depths=[2, 2, 2], num_heads=[3] * 3,
+               window_size=8, mlp_ratio=2, num_feat=16, upscale=4,
+               out_chans=3, img_size=64, img_range=1.0,
+               mean=[0.4488, 0.4371, 0.4040])
+    tree = ref.draw_weights(3, cfg)
+    frames = [_img(i, 16, 24) for i in range(3)]
+    _, spans = _traced(lambda: api.upscale_batch(
+        frames, weights=tree, chunk=2, fast=True, device="cpu"))
+    chunks = _count(spans, "chunk.launch")
+    assert chunks == 2
+    assert _count(spans, "swinir.embed") == chunks
+    assert _count(spans, "swinir.rstb") == 3 * chunks
+    assert _count(spans, "swinir.upsample") == chunks
+    launches = [(s, e) for n, s, e in spans if n == "chunk.launch"]
+    for n, s, e in spans:
+        if n.startswith("swinir."):
+            assert any(a <= s and e <= b for a, b in launches), n
+    _no_same_name_nesting(spans)
+
+
 def test_split_script_on_a_tiny_cell():
     p = subprocess.run(
         [sys.executable, SCRIPT, "--workload", "x4_frames_fast", "--seed",
