@@ -106,13 +106,20 @@ Phases, each fatal on failure:
    beside it and its bound (a JSON line ``{"int8_products": ...}``);
 4g. SwinIR (`swinir_phase`): ``window_attn_kernel`` against its plain
    version at the SwinIR cell's 544x960 tokens, shift 0 and 4 (max 2e-2,
-   mean 2e-3); `upscale_batch` on four 960x540 frames with seeded
-   SwinIR-M x4 weights on the fast tier, the launch count set to 0
-   before it (36 a chunk of the default one frame), frame 0 within the
-   cell's code-gap limits of
-   the reference's float32 upscale; the kernel and its plain version
-   timed in turns at each shift beside its bound (1,440 bytes a token
-   at 3.35 TB/s);
+   mean 2e-3); ``add_layernorm_kernel`` against its plain version on the
+   same tokens at C = 180, in each of the forward's four forms, in place
+   and out of place (the sum bit-identical, x untouched out of place, a
+   bf16 h within one unit everywhere and identical on 99.9%, an f32 h
+   within 16 f32 units);
+   `upscale_batch` on four 960x540 frames with seeded
+   SwinIR-M x4 weights on the fast tier, the launch counts set to 0
+   before it (36 attention and 80 add-and-normalise launches a chunk of
+   the default one frame), frame 0 within the cell's code-gap limits of
+   the reference's float32 upscale; each kernel and its plain version
+   timed in turns beside its bound (attention at each shift: 1,440 bytes
+   a token at 3.35 TB/s; the add + norm 2,160 bytes a token: its plain
+   version is PyTorch's own add, ``F.layer_norm`` and cast, the
+   yardstick);
 5. time each kernel, its plain version and, where one exists, the one
    PyTorch call for the same function (cuDNN's bf16 conv for the conv
    stage) with CUDA events, in turns, beside its bound (the larger of
@@ -1756,15 +1763,20 @@ def swinir_phase(card, frames: int = 4):
     at the shapes of the benchmark's SwinIR cell (960x540 frames, padded
     to 544x960 tokens, 6 heads of 30): ``window_attn_kernel`` against
     `window_attn_reference` on the same bf16 inputs at shift 0 and 4 (2e-2
-    largest, 2e-3 mean, as `tests/test_torch_swinir.py`); `upscale_batch`
+    largest, 2e-3 mean, as `tests/test_torch_swinir.py`);
+    ``add_layernorm_kernel`` against `add_layernorm_reference` on the same
+    tokens at C = 180 in each form the forward launches, in place and out
+    of place (as `tests/test_torch_add_layernorm.py`); `upscale_batch`
     with seeded SwinIR-M weights on ``frames`` frames, fast tier, with the
-    launch count set to 0 before it (36 launches a chunk, one frame a
-    chunk by default), its first
+    launch counts set to 0 before it (36 attention and 80 add-and-normalise
+    launches a chunk, one frame a chunk by default), its first
     frame against the reference's float32 upscale within the cell's
-    limits (`portbench/limits/swinir_x4_frames_fast.json`); then the
-    kernel and its plain version timed in turns at each shift, beside its
-    bound.  Returns {"launches": n, "err": worst max gap, "rows": [(shift,
-    kernel ms, plain ms, bound ms, bound by)]}."""
+    limits (`portbench/limits/swinir_x4_frames_fast.json`); then each
+    kernel and its plain version timed in turns (attention at each
+    shift), beside its bound.  Returns {"launches": n, "err": worst max
+    gap, "rows": [(shift, kernel ms, plain ms, bound ms, bound by)],
+    "ln": {"launches", "err", "timed": (kernel ms, plain ms), "bound":
+    (ms, by)}}."""
     import torch
     from portbench import images, swinir_flops
     from portbench.harness import load_json
@@ -1772,6 +1784,7 @@ def swinir_phase(card, frames: int = 4):
     from portbench.reference import swinir as ref
     from rusty_sr_tpu_torch.api import upscale_batch
     from rusty_sr_tpu_torch.models import swinir
+    from rusty_sr_tpu_torch.ops.cuda import add_layernorm as al
     from rusty_sr_tpu_torch.ops.cuda import window_attn as wa
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1797,23 +1810,81 @@ def swinir_phase(card, frames: int = 4):
             fail(f"window_attn at shift {shift}: max {mx}, mean {mean}")
         worst = max(worst, mx)
 
+    # The residual stream's add-and-normalise in each form the forward
+    # launches (as `tests/test_torch_add_layernorm.py::FORMS`: add + norm,
+    # add + cast, the patch norm from bf16 to f32, a norm to bf16 with no
+    # add), in place and out of place where it writes x_out.
+    bf16, f32 = torch.bfloat16, torch.float32
+    x = (torch.randn(hp * wp, c, generator=gen) * 3.0).to(dev)
+    y = torch.randn(hp * wp, c, generator=gen).to(dev, bf16)
+    norm = (1.0 + 0.1 * torch.randn(c, generator=gen).to(dev),
+            0.1 * torch.randn(c, generator=gen).to(dev))
+    ln_err = 0.0
+    for has_y, has_norm, out_dtype in ((True, True, bf16),
+                                       (True, False, bf16),
+                                       (False, True, f32),
+                                       (False, True, bf16)):
+        for in_place in ((True, False) if has_y else (False,)):
+            xi = x.to(bf16) if out_dtype == f32 else x
+            x_k, x_p = xi.clone(), xi.clone()
+            yi, ni = (y if has_y else None), (norm if has_norm else None)
+            s_k, h_k = al.add_layernorm(
+                x_k, yi, ni, out_dtype,
+                x_k if in_place else (torch.empty_like(x_k) if has_y
+                                      else None), swinir.LN_EPS)
+            s_p, h_p = al.add_layernorm_reference(
+                x_p, yi, ni, out_dtype, x_p if in_place else None,
+                swinir.LN_EPS)
+            d = (h_k.float() - h_p.float()).abs()
+            if out_dtype == bf16:     # one bf16 unit (2^-20 near zero)
+                tol = (torch.exp2(torch.floor(torch.log2(
+                    h_p.float().abs().clamp_min(2.0 ** -126))) - 7)
+                    ).clamp_min(2.0 ** -20)
+            else:                     # 16 f32 units, 2^-20 besides
+                tol = 16 * h_p.abs() * 2.0 ** -23 + 2.0 ** -20
+            same = float((h_k == h_p).float().mean())
+            err = float(d.max())
+            form = (f"{'add + ' if has_y else ''}"
+                    f"{'norm' if has_norm else 'cast'} to "
+                    f"{'bf16' if out_dtype == bf16 else 'f32'}"
+                    f"{', in place' if in_place else ''}")
+            kept = not has_y or in_place or torch.equal(x_k, xi)
+            print(f"add_layernorm, {hp}x{wp} tokens of {c}, {form}: sum "
+                  f"{'bit-identical' if torch.equal(s_k, s_p) else 'DIFFERENT'}"
+                  f", h max {err:.2e}, {same:.5%} identical to the plain "
+                  f"version{'' if kept else '; x WRITTEN'}")
+            if (not torch.equal(s_k, s_p) or bool((d > tol).any()) or not kept
+                    or (out_dtype == bf16 and same < 0.999)):
+                fail(f"add_layernorm, {form}: the sum or h differs (max "
+                     f"{err}, {same:.5%} identical)")
+            if out_dtype == bf16:
+                ln_err = max(ln_err, err)
+            del x_k, x_p, s_k, s_p, h_k, h_p, d, tol
+
     tree = ref.draw_weights(2 ** 31 + SEED, cfg)
     lr = images.pictures(2 ** 31 + SEED, "frames", frames, 540, 960,
                          device=dev).cpu().numpy()
-    wa.LAUNCHES = 0
+    wa.LAUNCHES = al.LAUNCHES = 0
     outs = upscale_batch(list(lr), weights=tree, factor=4, fast=True,
                          device=dev)
     torch.cuda.synchronize()
-    launches = wa.LAUNCHES
-    # one launch a block for each chunk of the default size
-    want = sum(cfg["depths"]) * -(-frames // swinir.DEFAULT_CHUNK)
+    launches, ln_launches = wa.LAUNCHES, al.LAUNCHES
+    # one attention launch a block for each chunk of the default size, and
+    # 2 * blocks + groups + 2 add-and-normalise launches
+    chunks = -(-frames // swinir.DEFAULT_CHUNK)
+    want = sum(cfg["depths"]) * chunks
     if launches != want:
         fail(f"upscale_batch with SwinIR weights launched window_attn "
              f"{launches} times for {frames} frames, not {want}")
+    ln_want = (2 * sum(cfg["depths"]) + len(cfg["depths"]) + 2) * chunks
+    if ln_launches != ln_want:
+        fail(f"upscale_batch with SwinIR weights launched add_layernorm "
+             f"{ln_launches} times for {frames} frames, not {ln_want}")
     p = {k: v.to(dev) for k, v in tree.items()}
     gaps = check.image_gaps(outs[0], ref.upscale_u8(p, lr[0], cfg, dev))
     print(f"upscale_batch, SwinIR-M x4, {frames} 960x540 frames (fast): "
-          f"{launches} window_attn launches; frame 0 against the reference: "
+          f"{launches} window_attn and {ln_launches} add_layernorm "
+          "launches; frame 0 against the reference: "
           f"{gaps} (limits {limits})")
     if (gaps["max_code_gap"] > limits["max_code_gap"]
             or gaps["mean_code_gap"] > limits["mean_code_gap"]):
@@ -1832,7 +1903,21 @@ def swinir_phase(card, frames: int = 4):
               f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms "
               f"({b_by}; {b_ms / k_ms:.1%} reached) per call (CUDA events, "
               f"2 x 10 calls each; {card})")
-    return {"launches": launches, "err": worst, "rows": rows}
+    ln_ms, ln_plain_ms, _ = time_in_turns(
+        lambda: al.add_layernorm_reference(x, y, norm, torch.bfloat16, x,
+                                           swinir.LN_EPS),
+        lambda: al.add_layernorm(x, y, norm, torch.bfloat16, x,
+                                 swinir.LN_EPS))
+    ln_b_ms, ln_b_by = bound(10.0 * tokens * c, 12 * tokens * c)
+    print(f"add_layernorm, one {hp}x{wp} frame of {c}, add + norm in place: "
+          f"kernel {ln_ms:.3f} ms, plain (= library: PyTorch's add, "
+          f"F.layer_norm and cast) {ln_plain_ms:.3f} ms, bound {ln_b_ms:.3f} "
+          f"ms ({ln_b_by}; {ln_b_ms / ln_ms:.1%} reached) per call (CUDA "
+          f"events, 2 x 10 calls each; {card})")
+    return {"launches": launches, "err": worst, "rows": rows,
+            "ln": {"launches": ln_launches, "err": ln_err,
+                   "timed": (ln_ms, ln_plain_ms),
+                   "bound": (ln_b_ms, ln_b_by)}}
 
 
 def main() -> int:
@@ -2700,6 +2785,10 @@ def main() -> int:
                         "none (not a TPU kernel)",
                         swin["launches"], swin["err"], (k_ms, p_ms),
                         (b_ms, b_by)))
+    ln = swin["ln"]
+    rows.append(row("add_layernorm", "rusty_sr_tpu_torch/csrc/add_layernorm.cu",
+                    "none (not a TPU kernel)", ln["launches"], ln["err"],
+                    ln["timed"], ln["bound"], ln["timed"][1]))
     # Not a TPU kernel: the int8 engine's products (the JAX package's XLA
     # dot_general) on torch._int_mm, with their launches in phase 4f.
     print(json.dumps({"int8_products": [

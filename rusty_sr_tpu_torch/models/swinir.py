@@ -30,14 +30,21 @@ Two tiers (`prepare`, `forward`):
   residual stream, LayerNorm statistics and softmax in f32; the window
   attention on the fused kernel (`ops.cuda.window_attn`, its plain
   version on the CPU), with the relative-position bias gathered once per
-  block at `prepare` into (heads, 64, 64);
+  block at `prepare` into (heads, 64, 64); each residual add fused with
+  the LayerNorm (or the bf16 cast) that reads its sum
+  (`ops.cuda.add_layernorm`: 2 * blocks + groups + 2 launches a chunk,
+  80 for SwinIR-M), the stream updated in place;
 - exact: float32 throughout with TF32 off (`ops.conv.exact_f32`), the
   window attention as plain torch operations (`window_attn_reference`).
 
-Each stage is a `span`: ``swinir.embed`` (conv_first and the patch
-embedding's LayerNorm), ``swinir.rstb`` (one residual group) and
-``swinir.upsample`` (the final LayerNorm, conv_after_body, the upsampler
-and conv_last through the output's u8 quantisation).
+Each stage is a `span`: ``swinir.embed`` (conv_first, the patch
+embedding's LayerNorm and the first block's norm1), ``swinir.rstb`` (one
+residual group, through the norm that reads its sum: the next group's
+first norm1, or the final LayerNorm) and ``swinir.upsample``
+(conv_after_body, the upsampler and conv_last through the output's u8
+quantisation); ``swinir.norm_plain``
+opens around each add-and-normalise of the exact tier, which takes the
+plain version (the fast tier always calls `ops.cuda.add_layernorm`).
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from rusty_sr_tpu_torch.ops.conv import exact_f32, tf32_on_bf16
+from rusty_sr_tpu_torch.ops.cuda import add_layernorm
 from rusty_sr_tpu_torch.ops.cuda.window_attn import (relative_bias,
                                                      window_attn,
                                                      window_attn_reference)
@@ -237,10 +245,18 @@ def prepare(tree, device="cuda", fast: bool = False) -> dict:
             "conv_last": (wl.contiguous(memory_format=cl), bl)}
 
 
-def _ln(t: torch.Tensor, wb, dt) -> torch.Tensor:
-    """LayerNorm over channels, f32 statistics, the result in ``dt``."""
-    return F.layer_norm(t.float(), (t.shape[-1],), wb[0], wb[1],
-                        LN_EPS).to(dt)
+def _add_norm(x: torch.Tensor, y, norm, dt, fast: bool, x_out=None) -> tuple:
+    """(s, h) of `ops.cuda.add_layernorm`: ``s = x + y`` (into ``x_out``;
+    ``x`` where no ``y``) and ``h`` = LN(s) (or s) in ``dt``.  The fast
+    tier calls the op, which launches the kernel on CUDA tensors (and
+    raises for a width it refuses) and runs the plain version on CPU
+    tensors; the exact tier takes the plain version, inside
+    ``swinir.norm_plain``."""
+    if fast:
+        return add_layernorm.add_layernorm(x, y, norm, dt, x_out, LN_EPS)
+    with span("swinir.norm_plain"):
+        return add_layernorm.add_layernorm_reference(x, y, norm, dt, x_out,
+                                                     LN_EPS)
 
 
 def _to_map(t: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -260,17 +276,26 @@ def _conv(x: torch.Tensor, wb) -> torch.Tensor:
                     padding=w.shape[-1] // 2)
 
 
-def _block(t: torch.Tensor, blk: dict, ph: int, pw: int, fast: bool,
-           dt) -> torch.Tensor:
-    """One Swin transformer layer on the f32 residual stream ``t``."""
-    qkv = F.linear(_ln(t, blk["norm1"], dt), *blk["qkv"])
+def _block(t: torch.Tensor, hn: list, blk: dict, nxt, ph: int, pw: int,
+           fast: bool, dt, fresh: bool = False) -> torch.Tensor:
+    """One Swin transformer layer on the f32 residual stream ``t``; ``hn``
+    holds its ``norm1`` alone.  The block pops that copy, so that it is
+    freed once qkv has read it, puts the stream's ``nxt`` norm in ``dt``
+    in its place (the next block's ``norm1``; None: the plain cast the
+    group's convolution reads) and returns the stream.  The stream is
+    updated in place, but for the first add when ``fresh``: the group's
+    input still holds its residual."""
+    qkv = F.linear(hn.pop(), *blk["qkv"])
     attn = window_attn if fast else window_attn_reference
     o = attn(qkv, blk["bias"], blk["shift"], ph, pw)
     del qkv
-    t = t + F.linear(o, *blk["proj"])
+    t, h = _add_norm(t, F.linear(o, *blk["proj"]), blk["norm2"], dt, fast,
+                     None if fresh else t)
     del o
-    h = F.gelu(F.linear(_ln(t, blk["norm2"], dt), *blk["fc1"]))
-    return t + F.linear(h, *blk["fc2"])
+    h = F.gelu(F.linear(h, *blk["fc1"]))
+    t, h = _add_norm(t, F.linear(h, *blk["fc2"]), nxt, dt, fast, t)
+    hn.append(h)
+    return t
 
 
 def forward(net: dict, x: torch.Tensor, to_u8: bool = True) -> torch.Tensor:
@@ -293,20 +318,26 @@ def _forward(net: dict, x: torch.Tensor, to_u8: bool) -> torch.Tensor:
         x = (x - net["mean"]) * cfg["img_range"]
         x = F.pad(x, (0, pw - w, 0, ph - h), mode="reflect")
         f0 = _conv(x.to(dt), net["conv_first"])
-        t = _to_tokens(f0).float()
-        if net["patch_norm"] is not None:
-            t = _ln(t, net["patch_norm"], torch.float32)
-    for layer in net["layers"]:
+        _, t = _add_norm(_to_tokens(f0), None, net["patch_norm"],
+                         torch.float32, fast)
+        layers = net["layers"]
+        # the stream's normed bf16 copy, held only here between its uses
+        hn = [_add_norm(t, None, layers[0]["blocks"][0]["norm1"], dt,
+                        fast)[1]]
+    for i, layer in enumerate(layers):
         with span("swinir.rstb"):
-            r = t
-            for blk in layer["blocks"]:
-                t = _block(t, blk, ph, pw, fast, dt)
-            t = _to_tokens(_conv(_to_map(t.to(dt), ph, pw),
-                                 layer["conv"])).float() + r
-            del r
+            r, blocks = t, layer["blocks"]
+            for j, blk in enumerate(blocks):
+                nxt = blocks[j + 1]["norm1"] if j + 1 < len(blocks) else None
+                t = _block(t, hn, blk, nxt, ph, pw, fast, dt, fresh=j == 0)
+            y = _to_tokens(_conv(_to_map(hn.pop(), ph, pw), layer["conv"]))
+            nxt = (layers[i + 1]["blocks"][0]["norm1"]
+                   if i + 1 < len(layers) else net["norm"])
+            t, normed = _add_norm(r, y, nxt, dt, fast, r)
+            hn.append(normed)
+            del r, y, normed
     with span("swinir.upsample"):
-        b = _conv(_to_map(_ln(t, net["norm"], dt), ph, pw),
-                  net["conv_after_body"]) + f0
+        b = _conv(_to_map(hn.pop(), ph, pw), net["conv_after_body"]) + f0
         del t, f0
         y = F.leaky_relu(_conv(b, net["conv_before_upsample"]), 0.01)
         for wb, r in net["upsample"]:

@@ -151,6 +151,9 @@ def load() -> ctypes.CDLL:
             lib.srt_window_attn.argtypes = ([ptr] * 3 + [i32] * 6
                                             + [ctypes.c_float, ptr])
             lib.srt_window_attn.restype = i32
+            lib.srt_add_layernorm.argtypes = (
+                [ptr] * 6 + [i64] + [i32] * 3 + [ctypes.c_float, ptr])
+            lib.srt_add_layernorm.restype = i32
             lib.srt_error_string.argtypes = [i32]
             lib.srt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -20,7 +20,9 @@ the seconds of ``chunk.scatter`` less the callback) and the count of
 ``scatter.fallback`` spans (scatters that missed the native path);
 ``tiled.prepare`` ms a request; SwinIR's stages (``swinir.embed``,
 ``swinir.rstb``, ``swinir.upsample``: the host's seconds in each, as
-shares of the slice and ms a frame, and the residual groups' count);
+shares of the slice and ms a frame, the residual groups' count, and the
+count of ``swinir.norm_plain`` spans: the exact tier's add-and-normalise
+calls, which take the plain version, none in a fast-tier run);
 the native
 encoder's HR MPix/s (when every request's encode ran natively);
 the slice's seconds a call or request; the idle gaps labelled by the
@@ -119,7 +121,9 @@ def split(r, factor=None) -> dict:
                                  for k, v in stages.items()}
             if frames else None,
             swinir_groups=sum(1 for m, _, _ in r.program
-                              if m == PRE + "swinir.rstb"))
+                              if m == PRE + "swinir.rstb"),
+            swinir_norm_plain=sum(1 for m, _, _ in r.program
+                                  if m == PRE + "swinir.norm_plain"))
     n = r.counts.get("requests", 0)
     if n:
         enc = [1 for m, _, _ in r.program if m == PRE + "codec.encode"]

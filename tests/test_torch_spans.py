@@ -295,6 +295,11 @@ def test_split_reads_the_swinir_stages():
         for g in range(6)] + [("rusty_sr.swinir.upsample", 1.3, 1.7)]
     out = split(_reading({"calls": 1, "frames": 2}, program))
     assert out["swinir_groups"] == 6
+    assert out["swinir_norm_plain"] == 0
+    plain = [("rusty_sr.swinir.norm_plain", 0.05, 0.06),
+             ("rusty_sr.swinir.norm_plain", 0.2, 0.21)]
+    assert split(_reading({"calls": 1, "frames": 2}, program + plain))[
+        "swinir_norm_plain"] == 2
     assert out["swinir_pct"] == {"embed": pytest.approx(5.0),
                                  "rstb": pytest.approx(60.0),
                                  "upsample": pytest.approx(20.0)}
@@ -305,7 +310,9 @@ def test_split_reads_the_swinir_stages():
 
 def test_swinir_spans_per_stage():
     """One ``swinir.embed``, one ``swinir.rstb`` a residual group and one
-    ``swinir.upsample`` a chunk, inside its ``chunk.launch``."""
+    ``swinir.upsample`` a chunk, inside its ``chunk.launch``; a
+    ``swinir.norm_plain`` for each add-and-normalise of the exact tier
+    alone."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import swinir_reference as ref
     from rusty_sr_tpu_torch import api
@@ -322,11 +329,18 @@ def test_swinir_spans_per_stage():
     assert _count(spans, "swinir.embed") == chunks
     assert _count(spans, "swinir.rstb") == 3 * chunks
     assert _count(spans, "swinir.upsample") == chunks
+    # the fast tier calls the op (its plain version on the CPU), so no
+    # add-and-normalise opens ``swinir.norm_plain``
+    assert _count(spans, "swinir.norm_plain") == 0
     launches = [(s, e) for n, s, e in spans if n == "chunk.launch"]
     for n, s, e in spans:
         if n.startswith("swinir."):
             assert any(a <= s and e <= b for a, b in launches), n
     _no_same_name_nesting(spans)
+    # the exact tier's are all plain: 2 * 6 blocks + 3 groups + 2 a chunk
+    _, spans = _traced(lambda: api.upscale_batch(
+        frames, weights=tree, chunk=2, fast=False, device="cpu"))
+    assert _count(spans, "swinir.norm_plain") == 17 * chunks
 
 
 def test_split_script_on_a_tiny_cell():

@@ -151,6 +151,93 @@ def test_float_frames_give_float_out(tree):
     assert gap.max() <= 1.0
 
 
+def test_group_residual_aliasing_the_stream_fails(tree, monkeypatch):
+    """A planted fault: each group's first add written into the group's
+    input in place, so that its residual ``r`` aliases the stream and the
+    group adds its own output twice; the comparison of
+    `test_model_matches_the_reference` must catch it in both tiers."""
+    block = swinir._block
+    monkeypatch.setattr(swinir, "_block", lambda *a, **k: block(
+        *a, **dict(k, fresh=False)))
+    frames = _frames(3, 2, 24, 32)
+    want = _reference(tree, frames)
+    for fast in (False, True):
+        assert not _within(_model(tree, frames, fast), want, fast)
+
+
+def _count_norms(monkeypatch, tree, frames, fast=True, as_kernel=False):
+    """Calls of the add-and-normalise in one forward, by form ((add,
+    norm) pairs), and ``F.layer_norm`` calls anywhere in it.
+    ``as_kernel``: count the calls of the wrapper, which the fast tier
+    calls on every device (its argument checks, then the plain version on
+    the CPU), in place of its plain version's."""
+    al = swinir.add_layernorm
+    forms, norms = [], [0]
+    ref_fn, wrap_fn, ln = al.add_layernorm_reference, al.add_layernorm, \
+        torch.nn.functional.layer_norm
+
+    def spy(fn):
+        def run(x, y=None, norm=None, *a):
+            forms.append((y is not None, norm is not None))
+            return fn(x, y, norm, *a)
+        return run
+
+    def count_ln(*a, **k):
+        norms[0] += 1
+        return ln(*a, **k)
+
+    monkeypatch.setattr(torch.nn.functional, "layer_norm", count_ln)
+    if as_kernel:
+        monkeypatch.setattr(al, "add_layernorm", spy(wrap_fn))
+    else:
+        monkeypatch.setattr(al, "add_layernorm_reference", spy(ref_fn))
+    net = swinir.prepare(tree, "cpu", fast)
+    out = swinir.forward(net, torch.from_numpy(frames), to_u8=False)
+    return forms, norms[0], out
+
+
+@pytest.fixture(scope="module")
+def tree_m():
+    """Seeded weights at SwinIR-M's published widths."""
+    cfg = dict(CFG, embed_dim=180, depths=[6] * 6, num_heads=[6] * 6,
+               num_feat=64)
+    return ref.draw_weights(2 ** 31 + 17, cfg)
+
+
+@pytest.mark.parametrize("as_kernel", [False, True])
+def test_fast_forward_normalises_80_times_a_frame(tree_m, monkeypatch,
+                                                  as_kernel):
+    """SwinIR-M's fast forward on one frame: 2 * 36 + 6 adds fused with a
+    LayerNorm or the groups' casts, and 2 without an add (the patch
+    embedding's norm and block 0's norm1); every LayerNorm is one of
+    them.  Through the wrapper as the card runs it, the model's arguments
+    pass its checks and the output does not change."""
+    frames = _frames(20, 1, 16, 16)
+    forms, n_ln, out = _count_norms(monkeypatch, tree_m, frames,
+                                    as_kernel=as_kernel)
+    assert len(forms) == 80
+    # norm2 in each block, the next norm1 in all but each group's last,
+    # and the norm after each group's residual
+    assert forms.count((True, True)) == 36 + 30 + 6
+    assert forms.count((True, False)) == 6          # the groups' casts
+    assert forms.count((False, True)) == 2
+    assert n_ln == 74
+    if as_kernel:
+        monkeypatch.undo()
+        np.testing.assert_array_equal(
+            out, _model(tree_m, frames, True))
+
+
+def test_exact_forward_keeps_f32_layer_norm(tree, monkeypatch):
+    """The exact tier takes the plain version too: 2 groups of 2 blocks
+    make 2 * 4 + 2 adds and 2 norms without one; all but the 2 groups'
+    casts are LayerNorms."""
+    frames = _frames(21, 1, 16, 16)
+    forms, n_ln, _ = _count_norms(monkeypatch, tree, frames, fast=False)
+    assert len(forms) == 12 and n_ln == 10
+    assert forms.count((True, False)) == 2
+
+
 @pytest.mark.parametrize("wrap", ["params_ema", "params", None])
 def test_official_layout_loads(tree, tmp_path, wrap):
     """A checkpoint as `torch.save` writes it, with the index and mask
