@@ -41,7 +41,8 @@ def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
     ``weights``: a builtin name ('imagenet', 'imagenetlinear', 'anime'),
     a path to a `.rsr` file, a parameter tree, or SwinIR weights (a state
     dict in SwinIR's layout, or a path to its ``.pth``), which run as
-    `upscale_batch` runs them, on the xla engine.  ``factor``: 3 for the
+    `upscale_batch` runs them, on the xla engine only (ValueError on the
+    others).  ``factor``: 3 for the
     reference's net when None; SwinIR weights upscale by their own scale
     and raise for another.  ``engine``: 'xla' (the
     default; the trunk as conv stages, the u8 path), 'fused' (the trunk
@@ -56,13 +57,9 @@ def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
     result is float32.  Float input must already be finite sRGB in [0, 1], and
     anything else raises.
     """
-    from rusty_sr_tpu_torch.models import swinir
-    from rusty_sr_tpu_torch.parallel.tiling import tiled_sr, tiled_sr_batch
+    from rusty_sr_tpu_torch.parallel.tiling import tiled_sr
 
     tree, factor = _resolve_params(weights, factor)
-    if swinir.is_swinir(tree) and engine != "xla":
-        raise ValueError(f"SwinIR runs on the 'xla' engine only, not "
-                         f"{engine!r}")
     image = np.asarray(image)
     if image.dtype == np.uint8:
         if engine not in ("xla", "int8"):
@@ -77,10 +74,6 @@ def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
                 "float input must be finite sRGB in [0, 1] (got range "
                 f"[{image.min():.3g}, {image.max():.3g}]); pass uint8 "
                 "pixels directly or divide by 255")
-    if swinir.is_swinir(tree):
-        return tiled_sr_batch(tree, [image], factor, chunk=chunk,
-                              device=device, compute_dtype=torch.bfloat16
-                              if fast else None)[0]
     return tiled_sr(tree, image, factor, tile=tile, chunk=chunk,
                     engine=engine, device=device,
                     compute_dtype=torch.bfloat16 if fast else None)
@@ -105,8 +98,8 @@ def upscale_batch(images, weights: Union[str, dict] = "imagenet",
     tiles over its data axis's devices in place of ``device``, with the
     same outputs.  ``weights`` and ``factor`` as in `upscale`: SwinIR
     weights run each frame whole as one tile of the chunk loop, frames of
-    one size to a chunk, ``chunk`` frames to it (by default as many as an
-    eighth of the card's memory holds, at most 4).  ``device`` as in
+    one size to a chunk, ``chunk`` frames to it (by default
+    `models.swinir.DEFAULT_CHUNK`, one frame).  ``device`` as in
     `upscale`.
     """
     from rusty_sr_tpu_torch.parallel.tiling import tiled_sr_batch

@@ -9,7 +9,9 @@ in it upscaled into the output folder, tiles batched across images on
 the xla engine); ``watch``, the resident serving mode; and ``train``,
 which fits new parameters to an image folder.  Each runs on the card
 (``--platform gpu``, the default) or on the CPU (``--platform cpu``: the
-kernels' plain PyTorch versions).
+kernels' plain PyTorch versions).  Every upscale and downscale goes
+through `api` (`upscale`, `upscale_batch`, `upscale_bilinear`,
+`downscale`); the CLI owns its flags, codecs, messages and exit codes.
 
 ``--mesh data=N[,spatial=S][,model=M]`` (or ``N``) runs the JAX
 package's mesh (`parallel.mesh`): upscale (xla engine), folder and
@@ -304,13 +306,10 @@ def device_for(platform: str):
 
 def _simple(args, img_u8, device) -> np.ndarray:
     """``-d`` or ``-p bilinear`` on one image."""
-    from rusty_sr_tpu_torch.parallel.tiling import tiled_simple
+    from rusty_sr_tpu_torch import api
     if args.downsample:
-        f = args.factor
-        h, w, _ = img_u8.shape
-        return tiled_simple(img_u8[: h - h % f, : w - w % f], f,
-                            mode="downsample", device=device)
-    return tiled_simple(img_u8, args.factor, mode="bilinear", device=device)
+        return api.downscale(img_u8, args.factor, device=device)
+    return api.upscale_bilinear(img_u8, args.factor, device=device)
 
 
 def _run_simple(args, img_u8, device) -> int:
@@ -359,9 +358,8 @@ def _load_weights(args):
 
 
 def run_upscale(args) -> int:
-    import torch
-    from rusty_sr_tpu_torch.models import swinir
-    from rusty_sr_tpu_torch.parallel.tiling import tiled_sr, tiled_sr_batch
+    from rusty_sr_tpu_torch import api
+    from rusty_sr_tpu_torch.params import is_checkpoint_path
     from rusty_sr_tpu_torch.utils.imageio import (
         DECODE_ERRORS, check_codec, load_image_u8, save_image, save_image_u8)
 
@@ -422,28 +420,23 @@ def run_upscale(args) -> int:
     tree = _load_weights(args)
     if isinstance(tree, int):
         return tree
-
-    # The xla engine takes the u8 pixels as they are and returns u8 HR
-    # pixels; the fused engine runs on f32 in [0, 1].
-    img = img_u8 if args.engine == "xla" else \
-        img_u8.astype(np.float32) / 255.0
-    cd = torch.bfloat16 if args.fast else None
-    if swinir.is_swinir(tree):
-        if args.engine != "xla":
-            print("\nerror: SwinIR weights run on --engine xla only",
-                  file=sys.stderr)
-            return 2
-        out = tiled_sr_batch(tree, [img], args.factor, chunk=args.chunk,
-                             device=device, compute_dtype=cd,
-                             mesh=mesh)[0]
-    elif mesh is not None:
-        from rusty_sr_tpu_torch.parallel.mesh import tiled_sr_sharded
-        out = tiled_sr_sharded(tree, img, mesh, args.factor, tile=args.tile,
-                               chunk=args.chunk, compute_dtype=cd)
-    else:
-        out = tiled_sr(tree, img, args.factor, tile=args.tile,
-                       chunk=args.chunk, engine=args.engine, device=device,
-                       compute_dtype=cd)
+    kw = dict(fast=args.fast, tile=args.tile, chunk=args.chunk,
+              device=device)
+    try:
+        if mesh is None:
+            out = api.upscale(img_u8, tree, args.factor, engine=args.engine,
+                              **kw)
+        else:
+            out = api.upscale_batch([img_u8], tree, args.factor, mesh=mesh,
+                                    **kw)[0]
+    except ValueError:
+        # The one refusal that a checkpoint's weights (SwinIR) add: an
+        # engine other than xla.
+        if args.engine == "xla" or not is_checkpoint_path(args.custom or ""):
+            raise
+        print("\nerror: SwinIR weights run on --engine xla only",
+              file=sys.stderr)
+        return 2
     print(" Writing file...", end="", flush=True)
     try:
         if out.dtype == np.uint8:
@@ -536,7 +529,7 @@ class _AsyncWriter:
 
 
 # Decoded LR bytes per group of the folder and watch modes: one
-# `tiled_sr_batch` call each, with the next group decoded while this one
+# `api.upscale_batch` call each, with the next group decoded while this one
 # computes.  The HR outputs are written behind and released per image, so
 # this budget is what bounds the host memory held.
 _GROUP_LR_BYTES = 128 << 20
@@ -631,21 +624,20 @@ def _upscale_group(args, tree, images, paths, writer, device,
                    mesh=None) -> None:
     """Upscale one decoded group of u8 ``images`` and hand each result to
     ``writer`` under its path in ``paths``: the neural modes in one
-    `tiled_sr_batch` call (over ``mesh`` when given), which submits each
-    image the moment its last tile is scattered; the non-neural ones
-    (``tree`` None) through `tiled_simple`, image by image."""
-    import torch
-    from rusty_sr_tpu_torch.parallel.tiling import tiled_sr_batch
+    `api.upscale_batch` call (over ``mesh`` when given), which submits
+    each image the moment its last tile is scattered; the non-neural ones
+    (``tree`` None) through `_simple`, image by image."""
+    from rusty_sr_tpu_torch import api
 
     if tree is None:
         for img, path in zip(images, paths):
             writer.submit(path, _simple(args, img, device))
         return
-    tiled_sr_batch(tree, images, args.factor, tile=args.tile,
-                   chunk=args.chunk, device=device, mesh=mesh,
-                   compute_dtype=torch.bfloat16 if args.fast else None,
-                   on_image_done=lambda j, out: writer.submit(paths[j], out),
-                   release_outputs=True)
+    api.upscale_batch(images, tree, args.factor, fast=args.fast,
+                      tile=args.tile, chunk=args.chunk, mesh=mesh,
+                      on_image_done=lambda j, out: writer.submit(paths[j],
+                                                                 out),
+                      release_outputs=True, device=device)
 
 
 def _run_upscale_folder(args, device, mesh=None) -> int:
@@ -653,11 +645,11 @@ def _run_upscale_folder(args, device, mesh=None) -> int:
     OUTPUT_FILE as ``stem.png``.
 
     The neural path is a pipeline of three stages: a decode pool stages
-    bounded groups one group ahead; `tiled_sr_batch` keeps up to
+    bounded groups one group ahead; `api.upscale_batch` keeps up to
     ``_MAX_INFLIGHT`` chunks of tiles, which span images, on the card;
     and each image is encoded on a write-behind pool the moment its last
     tile is scattered; ``mesh`` splits each chunk over its devices.  The
-    non-neural modes loop `tiled_simple` over the images.  A failed write
+    non-neural modes loop `_simple` over the images.  A failed write
     is reported and the run goes on; it then exits 1, as it does when no
     image in the folder is readable."""
     from rusty_sr_tpu_torch.train.data import list_images
@@ -750,7 +742,7 @@ def _watch_scan(input_dir: str, done: dict, fails: dict) -> list:
 def run_watch(args) -> int:
     """The resident serving mode: each poll upscales the new or changed
     images of INPUT_DIR into OUTPUT_DIR, in groups through
-    `tiled_sr_batch`, until interrupted (or once, with ``--once``)."""
+    `api.upscale_batch`, until interrupted (or once, with ``--once``)."""
     import json
     import time
 

@@ -17,9 +17,12 @@ optionally split over the devices of a mesh's data axis; and of its
 - uint8 images stay uint8 from the gather to the output on the xla
   engine: the tiles go to the device as u8 and come back as u8 HR tiles,
   quantised by the epilogue kernel.
-- The tile and halo rules are the network's: the reference's net
-  (`models.sr_net`) takes the grid of ``tile``-sided tiles with the
-  HALO above; SwinIR (`models.swinir`, in `tiled_sr_batch`) takes whole
+- `tiled_sr` (one image, any engine) and `tiled_sr_batch` (a list, the
+  xla engine) build their runners and share one path, `_grid`, which is
+  also the one point where the weights choose the network: the
+  reference's net (`models.sr_net`) takes one grid of ``tile``-sided
+  tiles with the HALO above, numbered across the images so that a chunk
+  spans them; SwinIR (`models.swinir`, the xla engine only) takes whole
   frames as its tiles, reflect-padded on the card to whole windows, with
   no halo (`models.swinir.HALO`), frames of one size to a chunk.
 - Tiles run in chunks of a fixed size (the last chunk padded), and at
@@ -51,6 +54,7 @@ from rusty_sr_tpu_torch.ops.cuda.shuffle import (depth_to_space_cuda,
                                                  unpack_s2d)
 from rusty_sr_tpu_torch.ops.cuda.trunk import fused_trunk, pack_trunk_weights
 from rusty_sr_tpu_torch.ops.resize import avg_pool, bilinear_phases_cropped
+from rusty_sr_tpu_torch.params import weights_factor
 from rusty_sr_tpu_torch.utils import native
 from rusty_sr_tpu_torch.utils.profiling import span
 
@@ -699,12 +703,34 @@ def _run_chunks(devices, n_tiles: int, chunk: int, in_specs, out_spec,
                 _RINGS[(d, i)] = (specs, ring)
 
 
-def _check_tier(compute_dtype) -> bool:
-    """True for the fast tier (bfloat16), False for the exact one."""
+def _checked(images, tile: int, chunk, compute_dtype, out16):
+    """The arguments `tiled_sr` and `tiled_sr_batch` share, checked:
+    (fast, out16, u8_io, the images as arrays).  ``compute_dtype`` None
+    (or float32) is the exact tier, bfloat16 the fast one; ``out16`` as
+    JAX resolves it, None being True in the fast tier and False in the
+    exact tier, other values True, False or "bcd".  The images share one
+    dtype: uint8, or float taken as float32."""
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, not "
                          f"{compute_dtype}")
-    return compute_dtype == torch.bfloat16
+    fast = compute_dtype == torch.bfloat16
+    if out16 is None:
+        out16 = fast
+    elif out16 not in (True, False, "bcd"):
+        raise ValueError(f"out16 must be None, True, False or 'bcd', not "
+                         f"{out16!r}")
+    imgs = [np.asarray(im) for im in images]
+    u8_io = bool(imgs) and imgs[0].dtype == np.uint8
+    if any((im.dtype == np.uint8) != u8_io for im in imgs):
+        raise ValueError("all images in a batch must share the input "
+                         "dtype (uint8 or float)")
+    if tile < 1:
+        raise ValueError(f"tile must be positive, got {tile}")
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    if not u8_io:
+        imgs = [np.asarray(im, np.float32) for im in imgs]
+    return fast, out16, u8_io, imgs
 
 
 def _xla_runner(params, factor: int, tile: int, fast: bool, u8_io: bool,
@@ -728,27 +754,75 @@ def _xla_runner(params, factor: int, tile: int, fast: bool, u8_io: bool,
                                          conv0_ws)), False
 
 
-def _resolve_out16(out16, fast: bool):
-    """JAX's resolution of ``out16``: None is True in the fast tier and
-    False in the exact tier; other values are True, False or "bcd"."""
-    if out16 is None:
-        return fast
-    if out16 not in (True, False, "bcd"):
-        raise ValueError(f"out16 must be None, True, False or 'bcd', not "
-                         f"{out16!r}")
-    return out16
+def _grid_shape(img: np.ndarray, tile: int) -> tuple:
+    """(ny, nx): the rows and columns of ``tile``-sided tiles that cover
+    an image (at least one each)."""
+    return max(1, -(-img.shape[0] // tile)), max(1, -(-img.shape[1] // tile))
 
 
-def _tile_specs(chunk: int, tile: int, factor: int, u8_io: bool,
-                need_zero: bool):
-    """The chunk pipeline's specs of the neural tile kernels: zero-padded
-    tiles (or None), edge-padded tiles, masks; the HR tiles out."""
-    side = tile + 2 * HALO
+def _grid(params, imgs, factor: int, tile: int, chunk, fast: bool, devices,
+          runner, engine: str = "xla", on_image_done=None,
+          release_outputs: bool = False) -> list:
+    """The one neural path of `tiled_sr` and `tiled_sr_batch`, and the one
+    point where the weights choose the network.
+
+    SwinIR weights run whole frames (`_whole_frames_batch`), on the xla
+    engine only.  The reference's net runs on the tile grid: each image
+    is cut into its (ny, nx) tiles, numbered across the images in order,
+    so that a chunk spans images; ``runner(device)`` builds each device's
+    tile kernel, (run, use_packed), under ``tiled.prepare``; a chunk is
+    gathered from the images it meets and scattered across them by
+    `_drain_batch_chunk` (``on_image_done`` and ``release_outputs`` as
+    in `tiled_sr_batch`).  The outputs in input order."""
+    if swinir.is_swinir(params):
+        if engine != "xla":
+            raise ValueError(f"SwinIR runs on the 'xla' engine only, not "
+                             f"{engine!r}")
+        return _whole_frames_batch(params, imgs, factor, chunk, fast,
+                                   devices, on_image_done, release_outputs)
+    chunk = _DEFAULT_CHUNK if chunk is None else chunk
+    h = HALO
+    u8_io = imgs[0].dtype == np.uint8
+    metas = [_grid_shape(im, tile) for im in imgs]     # (ny, nx) per image
+    starts = np.cumsum([0] + [ny * nx for ny, nx in metas])
+    with span("tiled.prepare"):
+        runners = [runner(d) for d in devices]
+    need_zero = not runners[0][1]
+
+    def gather_range(g0: int, g1: int, bufs) -> None:
+        # Walk the images that the global tile range [g0, g1) meets and
+        # gather each one's image-local sub-range in place.
+        i = int(np.searchsorted(starts, g0, side="right")) - 1
+        pos = 0
+        while g0 < g1:
+            lo = g0 - int(starts[i])
+            hi = min(g1, int(starts[i + 1])) - int(starts[i])
+            native.gather_tiles_range(
+                imgs[i], tile, h, metas[i][1], lo, hi, need_zero=need_zero,
+                out=[None if b is None else b[pos:pos + hi - lo]
+                     for b in bufs])
+            pos += hi - lo
+            g0 = int(starts[i + 1])
+            i += 1
+
+    with span("tiled.outputs"):     # the grids cover every pixel
+        outs = [np.empty((im.shape[0] * factor, im.shape[1] * factor, 3),
+                         np.uint8 if u8_io else np.float32) for im in imgs]
+    remain = [ny * nx for ny, nx in metas]     # undrained tiles per image
+    cursor = [0]                               # the image the drain is in
+    side, tf = tile + 2 * h, tile * factor
     dt = torch.uint8 if u8_io else torch.float32
-    tf = tile * factor
-    return ([((chunk, side, side, 3), dt) if need_zero else None,
-             ((chunk, side, side, 3), dt), ((chunk, side, side, 1), dt)],
-            ((chunk, tf, tf, 3), dt))
+    # Zero-padded tiles (None for the packed tier), edge-padded tiles,
+    # masks; the HR tiles out.
+    in_specs = [((chunk, side, side, 3), dt) if need_zero else None,
+                ((chunk, side, side, 3), dt), ((chunk, side, side, 1), dt)]
+    _run_chunks(devices, int(starts[-1]), chunk, in_specs,
+                ((chunk, tf, tf, 3), dt), gather_range,
+                [run for run, _ in runners],
+                lambda g0, res: _drain_batch_chunk(
+                    res, g0, starts, metas, outs, cursor, remain,
+                    on_image_done, release_outputs))
+    return outs
 
 
 def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
@@ -769,7 +843,8 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
     "int8" (`_tile_kernel_q8`: the trunk's merged stages on int8 products,
     calibrated on tiles taken evenly across the image).
     ``compute_dtype`` None (or float32) is the exact tier; bfloat16 the
-    fast tier.
+    fast tier.  SwinIR weights run as `tiled_sr_batch` runs them, on the
+    xla engine only (ValueError on the others).
 
     The JAX package's variant knobs, which change only the xla engine's
     fast tier: ``trunk="flat"`` takes the flat tile kernel where "auto"
@@ -780,8 +855,8 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
     terms (False: rounded once).  ``packed``: the fused engine's weights
     from `ops.cuda.trunk.pack_trunk_weights`, so that a caller does not
     pack them for every image.  ``rh`` is the Pallas kernel's row block,
-    validated as there (a divisor of the tile is chosen) and otherwise
-    unused: the CUDA kernels have no row block.
+    checked to be positive as there and otherwise unused: the CUDA
+    kernels have no row block.
     ``device`` runs the tiles there: "cuda" launches the kernels, "cpu"
     runs their plain PyTorch versions."""
     if engine not in ("xla", "fused", "int8"):
@@ -789,62 +864,38 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
                          f"{engine!r}")
     if trunk not in ("auto", "flat"):
         raise ValueError(f"trunk must be 'auto' or 'flat', not {trunk!r}")
-    fast = _check_tier(compute_dtype)
-    out16 = _resolve_out16(out16, fast)
-    u8_io = np.asarray(image).dtype == np.uint8
-    img = np.asarray(image) if u8_io else np.asarray(image, np.float32)
-    if engine == "fused" and u8_io:
-        raise ValueError("the fused engine takes f32 images in [0,1]; "
-                         "divide uint8 pixels by 255")
-    if tile < 1:
-        raise ValueError(f"tile must be positive, got {tile}")
-    device = torch.device(device)
-    chunk = _DEFAULT_CHUNK if chunk is None else chunk
-    if chunk < 1:
-        raise ValueError(f"chunk must be positive, got {chunk}")
-    hgt, wid, _ = img.shape
-    h = HALO
-    ny = max(1, -(-hgt // tile))
-    nx = max(1, -(-wid // tile))
+    fast, out16, u8_io, (img,) = _checked([image], tile, chunk,
+                                          compute_dtype, out16)
 
-    use_packed = False
-    with span("tiled.prepare"):
+    def runner(device):
+        if engine == "xla":
+            return _xla_runner(params, factor, tile, fast, u8_io, device,
+                               trunk, out16, conv0_s2d, conv0_ws)
         if engine == "fused":
+            if u8_io:
+                raise ValueError("the fused engine takes f32 images in "
+                                 "[0,1]; divide uint8 pixels by 255")
             if rh < 1:
                 raise ValueError(f"rh must be positive, got {rh}")
-            rh = next(d for d in range(rh, 0, -1) if tile % d == 0)
             cd = compute_dtype or torch.float32
-            if packed is None:
-                packed = pack_trunk_weights(trunk_params(params), factor, cd)
-            packed = {k: v.to(device) for k, v in packed.items()}
-            run = lambda z, e, m: _tile_kernel_fused(  # noqa: E731
-                packed, z, e, m, factor, tile, cd)
-        elif engine == "int8":
-            # Calibration tiles taken evenly across the whole image,
-            # gathered one at a time.
-            idx = np.unique(np.linspace(0, ny * nx - 1,
-                                        min(chunk, ny * nx)).astype(int))
-            sample = np.concatenate([native.gather_tiles_range(
-                img, tile, h, nx, i, i + 1)[0] for i in idx])
-            q = _int8_trunk(trunk_params(params), sample, u8_io, device)
-            run = lambda z, e, m: _tile_kernel_q8(  # noqa: E731
-                q, z, e, m, factor, tile, u8_io)
-        else:
-            run, use_packed = _xla_runner(params, factor, tile, fast, u8_io,
-                                          device, trunk, out16, conv0_s2d,
-                                          conv0_ws)
+            w = pack_trunk_weights(trunk_params(params), factor, cd) \
+                if packed is None else packed
+            w = {k: v.to(device) for k, v in w.items()}
+            return (lambda z, e, m: _tile_kernel_fused(
+                w, z, e, m, factor, tile, cd)), False
+        # int8: calibration tiles taken evenly across the whole image,
+        # gathered one at a time.
+        ny, nx = _grid_shape(img, tile)
+        idx = np.unique(np.linspace(0, ny * nx - 1, min(
+            chunk or _DEFAULT_CHUNK, ny * nx)).astype(int))
+        sample = np.concatenate([native.gather_tiles_range(
+            img, tile, HALO, nx, i, i + 1)[0] for i in idx])
+        q = _int8_trunk(trunk_params(params), sample, u8_io, device)
+        return (lambda z, e, m: _tile_kernel_q8(
+            q, z, e, m, factor, tile, u8_io)), False
 
-    with span("tiled.outputs"):     # the grid covers every pixel
-        out = np.empty((hgt * factor, wid * factor, 3),
-                       np.uint8 if u8_io else np.float32)
-    in_specs, out_spec = _tile_specs(chunk, tile, factor, u8_io,
-                                     not use_packed)
-    _run_chunks(
-        [device], ny * nx, chunk, in_specs, out_spec,
-        lambda g0, g1, bufs: native.gather_tiles_range(
-            img, tile, h, nx, g0, g1, need_zero=not use_packed, out=bufs),
-        [run], lambda g0, res: native.scatter_tiles(res, g0, nx, out))
-    return out
+    return _grid(params, [img], factor, tile, chunk, fast,
+                 [torch.device(device)], runner, engine)[0]
 
 
 def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
@@ -863,9 +914,9 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
     bfloat16 (the packed tier on uint8 tiles of an even padded side, the
     flat tier otherwise, with `tiled_sr`'s ``out16``).  ``params`` may
     also be a SwinIR state dict (`models.swinir`): each frame is then
-    one tile (`_whole_frames_batch`; ``tile`` and ``out16`` are not
-    used, ``chunk`` counts frames, and ``factor`` must be the weights'
-    scale).  The int8 engine is
+    one tile (`_whole_frames_batch`), ``tile`` and ``out16`` are checked
+    but not used, ``chunk`` counts frames, and ``factor`` must be the
+    weights' scale.  The int8 engine is
     `tiled_sr`'s alone, as in the JAX package.  ``on_image_done(i,
     out)`` is called on the caller's thread, in ascending ``i``, once the
     chunk that holds image i's last tile is scattered, while later chunks
@@ -884,65 +935,16 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
     pinned slots and copy streams, and its own in-flight window.  A
     tile's result does not depend on the device that ran it, so the
     outputs are the single-device path's."""
-    fast = _check_tier(compute_dtype)
-    out16 = _resolve_out16(out16, fast)
-    if not images:
+    fast, out16, u8_io, imgs = _checked(images, tile, chunk, compute_dtype,
+                                        out16)
+    if not imgs:
         return []
-    imgs = [np.asarray(im) for im in images]
-    u8_io = imgs[0].dtype == np.uint8
-    if not all((im.dtype == np.uint8) == u8_io for im in imgs):
-        raise ValueError("all images in a batch must share the input "
-                         "dtype (uint8 or float)")
-    if not u8_io:
-        imgs = [np.asarray(im, np.float32) for im in imgs]
-    if tile < 1:
-        raise ValueError(f"tile must be positive, got {tile}")
     devices = [torch.device(device)] if mesh is None else list(mesh.lanes)
-    if chunk is not None and chunk < 1:
-        raise ValueError(f"chunk must be positive, got {chunk}")
-    if swinir.is_swinir(params):
-        return _whole_frames_batch(params, imgs, factor, chunk, fast,
-                                   devices, on_image_done, release_outputs)
-    chunk = _DEFAULT_CHUNK if chunk is None else chunk
-    h = HALO
-    metas = [(max(1, -(-im.shape[0] // tile)), max(1, -(-im.shape[1] // tile)))
-             for im in imgs]                         # (ny, nx) per image
-    starts = np.cumsum([0] + [ny * nx for ny, nx in metas])
-    with span("tiled.prepare"):
-        runners = [_xla_runner(params, factor, tile, fast, u8_io, d,
-                               out16=out16) for d in devices]
-    use_packed = runners[0][1]
-
-    def gather_range(g0: int, g1: int, bufs) -> None:
-        # Walk the images that the global tile range [g0, g1) meets and
-        # gather each one's image-local sub-range in place.
-        i = int(np.searchsorted(starts, g0, side="right")) - 1
-        pos = 0
-        while g0 < g1:
-            lo = g0 - int(starts[i])
-            hi = min(g1, int(starts[i + 1])) - int(starts[i])
-            native.gather_tiles_range(
-                imgs[i], tile, h, metas[i][1], lo, hi,
-                need_zero=not use_packed,
-                out=[None if b is None else b[pos:pos + hi - lo]
-                     for b in bufs])
-            pos += hi - lo
-            g0 = int(starts[i + 1])
-            i += 1
-
-    with span("tiled.outputs"):     # the grids cover every pixel
-        outs = [np.empty((im.shape[0] * factor, im.shape[1] * factor, 3),
-                         np.uint8 if u8_io else np.float32) for im in imgs]
-    remain = [ny * nx for ny, nx in metas]     # undrained tiles per image
-    cursor = [0]                               # the image the drain is in
-    in_specs, out_spec = _tile_specs(chunk, tile, factor, u8_io,
-                                     not use_packed)
-    _run_chunks(devices, int(starts[-1]), chunk, in_specs, out_spec,
-                gather_range, [run for run, _ in runners],
-                lambda g0, res: _drain_batch_chunk(
-                    res, g0, starts, metas, outs, cursor, remain,
-                    on_image_done, release_outputs))
-    return outs
+    return _grid(params, imgs, factor, tile, chunk, fast, devices,
+                 lambda d: _xla_runner(params, factor, tile, fast, u8_io, d,
+                                       out16=out16),
+                 on_image_done=on_image_done,
+                 release_outputs=release_outputs)
 
 
 def _whole_frames_batch(params, imgs, factor: int, chunk, fast: bool,
@@ -962,9 +964,7 @@ def _whole_frames_batch(params, imgs, factor: int, chunk, fast: bool,
     frame that finishes before an earlier one of another size waits for
     it.  uint8 frames give uint8; float frames in [0, 1] give float32,
     clipped to [0, 1]."""
-    s = swinir.config_of(params)["upscale"]
-    if factor != s:
-        raise ValueError(f"the SwinIR weights upscale x{s}, not x{factor}")
+    s = weights_factor(params, factor)
     with span("tiled.prepare"):
         nets = [swinir.prepare(params, d, fast) for d in devices]
     u8_io = imgs[0].dtype == np.uint8
@@ -1116,8 +1116,7 @@ def tiled_simple(image: np.ndarray, factor: int = 3, *, mode: str,
         raise ValueError(f"chunk must be positive, got {chunk}")
     hgt, wid, _ = img.shape
     h = HALO
-    ny = max(1, -(-hgt // tile))
-    nx = max(1, -(-wid // tile))
+    ny, nx = _grid_shape(img, tile)
     et = _gather_edge(img, tile, h, ny, nx)
     side = tile + 2 * h
     up = mode == "bilinear"

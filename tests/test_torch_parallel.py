@@ -319,3 +319,52 @@ def test_tile_grid_writes_every_output_byte(anime, monkeypatch, one_thread,
         assert all(o.shape in filled.shapes for o in outs)
         got.append([(o.dtype, o.shape, o.tobytes()) for o in outs])
     assert got[0] == got[1]
+
+
+# --- one path: tiled_sr and the CLI run the batch path's grid ------------
+
+@pytest.mark.parametrize("tile", [16, 15], ids=["even", "odd"])
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+def test_tiled_sr_is_a_one_image_batch(anime, one_thread, tile, dtype,
+                                       fast):
+    """`tiled_sr` on the xla engine is `tiled_sr_batch` on that one image,
+    byte for byte (tile 16 pads to an even side, which the fast tier
+    takes packed on u8 tiles; 15 to an odd one, the flat tier)."""
+    img = images()[0] if dtype == "u8" else _f32(images()[0])
+    kw = dict(tile=tile, chunk=4, device="cpu",
+              compute_dtype=torch.bfloat16 if fast else None)
+    one = tiling.tiled_sr(anime, img, 3, **kw)
+    assert one.dtype == (np.uint8 if dtype == "u8" else np.float32)
+    assert one.tobytes() == \
+        tiling.tiled_sr_batch(anime, [img], 3, **kw)[0].tobytes()
+
+
+@pytest.mark.parametrize("case", ["exact", "fast", "swinir", "mesh"])
+def test_cli_writes_the_bytes_of_api_upscale(one_thread, tmp_path, case):
+    """The CLI upscales a single image through `api`: its PNG holds the
+    bytes of `api.upscale` with the same weights and flags, for the
+    builtin weights in both tiers, a SwinIR checkpoint (its own x4) and
+    ``--mesh data=2`` (against the run without it)."""
+    import swinir_reference as ref
+    from test_torch_swinir import CFG
+
+    src, dst = str(tmp_path / "in.png"), str(tmp_path / "out.png")
+    img = images(5)[1]
+    save_image_u8(src, img)
+    weights, flags = "anime", ["-p", "anime"]
+    if case == "swinir":
+        weights = ref.draw_weights(2 ** 31 + 11, CFG)
+        flags = ["-c", str(tmp_path / "tiny.pth")]
+        torch.save({"params": weights}, flags[1])
+    fast = case in ("fast", "mesh")
+    flags += ["--fast"] * fast + ["--mesh", "data=2"] * (case == "mesh")
+    assert cli.main(["--platform", "cpu", "--tile", "16", "--chunk", "4",
+                     *flags, src, dst]) == 0
+    want = api.upscale(img, weights, fast=fast, tile=16, chunk=4,
+                       device="cpu")
+    got = load_image_u8(dst)
+    assert got.shape == want.shape == \
+        (img.shape[0] * (4 if case == "swinir" else 3),
+         img.shape[1] * (4 if case == "swinir" else 3), 3)
+    assert got.tobytes() == want.tobytes()

@@ -275,6 +275,16 @@ def test_factor_follows_the_weights(tree):
                     device="cpu")
 
 
+@pytest.mark.parametrize("engine", ["fused", "int8"])
+def test_tiled_sr_runs_swinir_on_the_xla_engine_only(tree, engine):
+    """`parallel.tiling` decides the network: SwinIR weights on another
+    engine raise there, before any weight is prepared."""
+    img = _frames(15, 1, 16, 16)[0].astype(np.float32) / 255.0
+    with pytest.raises(ValueError, match=f"'xla' engine only, not "
+                                         f"'{engine}'"):
+        tiling.tiled_sr(tree, img, 4, engine=engine, device="cpu")
+
+
 def test_masks_and_index_match_swinir():
     np.testing.assert_array_equal(wa.relative_index(8),
                                   ref.relative_position_index(8))
