@@ -110,16 +110,21 @@ Phases, each fatal on failure:
    same tokens at C = 180, in each of the forward's four forms, in place
    and out of place (the sum bit-identical, x untouched out of place, a
    bf16 h within one unit everywhere and identical on 99.9%, an f32 h
-   within 16 f32 units);
+   within 16 f32 units); ``swin_mlp_kernel`` against its plain version
+   on the same tokens at C = 180, hidden 360 (as
+   `tests/test_torch_swin_mlp.py`: every value within one bf16 unit and
+   2^-6, the mean gap within 2e-5 of the mean |y|);
    `upscale_batch` on four 960x540 frames with seeded
    SwinIR-M x4 weights on the fast tier, the launch counts set to 0
-   before it (36 attention and 80 add-and-normalise launches a chunk of
-   the default one frame), frame 0 within the cell's code-gap limits of
-   the reference's float32 upscale; each kernel and its plain version
-   timed in turns beside its bound (attention at each shift: 1,440 bytes
-   a token at 3.35 TB/s; the add + norm 2,160 bytes a token: its plain
-   version is PyTorch's own add, ``F.layer_norm`` and cast, the
-   yardstick);
+   before it (36 attention, 80 add-and-normalise and 36 MLP launches a
+   chunk of the default one frame), frame 0 within the cell's code-gap
+   limits of the reference's float32 upscale; each kernel and its plain
+   version timed in turns beside its bound (attention at each shift:
+   1,440 bytes a token at 3.35 TB/s; the add + norm 2,160 bytes a token:
+   its plain version is PyTorch's own add, ``F.layer_norm`` and cast, the
+   yardstick; the MLP 259,200 FLOP a token at 989 TFLOP/s, with the
+   library's bf16 ``F.linear``, ``F.gelu``, ``F.linear`` timed beside it,
+   which the port never calls);
 5. time each kernel, its plain version and, where one exists, the one
    PyTorch call for the same function (cuDNN's bf16 conv for the conv
    stage) with CUDA events, in turns, beside its bound (the larger of
@@ -1773,11 +1778,16 @@ def swinir_phase(card, frames: int = 4):
     frame against the reference's float32 upscale within the cell's
     limits (`portbench/limits/swinir_x4_frames_fast.json`); then each
     kernel and its plain version timed in turns (attention at each
-    shift), beside its bound.  Returns {"launches": n, "err": worst max
-    gap, "rows": [(shift, kernel ms, plain ms, bound ms, bound by)],
-    "ln": {"launches", "err", "timed": (kernel ms, plain ms), "bound":
-    (ms, by)}}."""
+    shift), beside its bound; ``swin_mlp_kernel`` likewise against
+    `swin_mlp_reference` at C = 180, hidden 360 (as
+    `tests/test_torch_swin_mlp.py`), with 36 launches a chunk, and timed
+    with the library's bf16 composition.  Returns {"launches": n, "err":
+    worst max gap, "rows": [(shift, kernel ms, plain ms, bound ms, bound
+    by)], "ln": {"launches", "err", "timed": (kernel ms, plain ms),
+    "bound": (ms, by)}, "mlp": {the same, "timed": (kernel ms, plain ms,
+    library ms)}}."""
     import torch
+    import torch.nn.functional as F
     from portbench import images, swinir_flops
     from portbench.harness import load_json
     from portbench.reference import check
@@ -1785,6 +1795,7 @@ def swinir_phase(card, frames: int = 4):
     from rusty_sr_tpu_torch.api import upscale_batch
     from rusty_sr_tpu_torch.models import swinir
     from rusty_sr_tpu_torch.ops.cuda import add_layernorm as al
+    from rusty_sr_tpu_torch.ops.cuda import swin_mlp as sm
     from rusty_sr_tpu_torch.ops.cuda import window_attn as wa
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1861,14 +1872,42 @@ def swinir_phase(card, frames: int = 4):
                 ln_err = max(ln_err, err)
             del x_k, x_p, s_k, s_p, h_k, h_p, d, tol
 
+    # The MLP on the same tokens (fc1 180 -> 360, erf GELU, fc2), weights
+    # drawn as the cell draws them: every value within one bf16 unit of the
+    # plain version's and 2^-6, the mean gap within 2e-5 of the mean |y|.
+    hidden = c * cfg["mlp_ratio"]
+    mlp = sm.prepare(
+        ((torch.randn(hidden, c, generator=gen) / c ** 0.5).to(dev, bf16),
+         (0.05 * torch.randn(hidden, generator=gen)).to(dev, bf16)),
+        ((torch.randn(c, hidden, generator=gen) / hidden ** 0.5).to(dev, bf16),
+         (0.05 * torch.randn(c, generator=gen)).to(dev, bf16)))
+    hm = torch.randn(hp * wp, c, generator=gen).to(dev, bf16)
+    y_k, y_p = sm.swin_mlp(hm, mlp), sm.swin_mlp_reference(hm, mlp)
+    d = (y_k.float() - y_p.float()).abs()
+    unit = torch.exp2(torch.floor(torch.log2(
+        y_p.float().abs().clamp_min(2.0 ** -126))) - 7)
+    mlp_err, mlp_mean = float(d.max()), float(d.mean())
+    mlp_excess = float((d - unit).max())
+    rel_mean = mlp_mean / float(y_p.float().abs().mean())
+    print(f"swin_mlp, {hp}x{wp} tokens of {c}, hidden {hidden}: max "
+          f"{mlp_err:.2e} ({mlp_excess:.2e} past one unit), mean "
+          f"{mlp_mean:.2e} ({rel_mean:.2e} of the mean |y|), "
+          f"{float((y_k == y_p).float().mean()):.5%} identical to the plain "
+          "version")
+    if mlp_excess > 2.0 ** -6 or rel_mean > 2e-5:
+        fail(f"swin_mlp: {mlp_excess} past one unit, mean {rel_mean} of "
+             "the mean |y|")
+    del y_k, y_p, d, unit
+
     tree = ref.draw_weights(2 ** 31 + SEED, cfg)
     lr = images.pictures(2 ** 31 + SEED, "frames", frames, 540, 960,
                          device=dev).cpu().numpy()
-    wa.LAUNCHES = al.LAUNCHES = 0
+    wa.LAUNCHES = al.LAUNCHES = sm.LAUNCHES = 0
     outs = upscale_batch(list(lr), weights=tree, factor=4, fast=True,
                          device=dev)
     torch.cuda.synchronize()
     launches, ln_launches = wa.LAUNCHES, al.LAUNCHES
+    mlp_launches = sm.LAUNCHES
     # one attention launch a block for each chunk of the default size, and
     # 2 * blocks + groups + 2 add-and-normalise launches
     chunks = -(-frames // swinir.DEFAULT_CHUNK)
@@ -1880,11 +1919,14 @@ def swinir_phase(card, frames: int = 4):
     if ln_launches != ln_want:
         fail(f"upscale_batch with SwinIR weights launched add_layernorm "
              f"{ln_launches} times for {frames} frames, not {ln_want}")
+    if mlp_launches != want:      # one a block, as the attention
+        fail(f"upscale_batch with SwinIR weights launched swin_mlp "
+             f"{mlp_launches} times for {frames} frames, not {want}")
     p = {k: v.to(dev) for k, v in tree.items()}
     gaps = check.image_gaps(outs[0], ref.upscale_u8(p, lr[0], cfg, dev))
     print(f"upscale_batch, SwinIR-M x4, {frames} 960x540 frames (fast): "
-          f"{launches} window_attn and {ln_launches} add_layernorm "
-          "launches; frame 0 against the reference: "
+          f"{launches} window_attn, {ln_launches} add_layernorm and "
+          f"{mlp_launches} swin_mlp launches; frame 0 against the reference: "
           f"{gaps} (limits {limits})")
     if (gaps["max_code_gap"] > limits["max_code_gap"]
             or gaps["mean_code_gap"] > limits["mean_code_gap"]):
@@ -1914,10 +1956,25 @@ def swinir_phase(card, frames: int = 4):
           f"F.layer_norm and cast) {ln_plain_ms:.3f} ms, bound {ln_b_ms:.3f} "
           f"ms ({ln_b_by}; {ln_b_ms / ln_ms:.1%} reached) per call (CUDA "
           f"events, 2 x 10 calls each; {card})")
+    w1, b1 = mlp["fc1"]
+    w2, b2 = mlp["fc2"]
+    mlp_ms, mlp_plain_ms, mlp_lib_ms = time_in_turns(
+        lambda: sm.swin_mlp_reference(hm, mlp),
+        lambda: sm.swin_mlp(hm, mlp),
+        lambda: F.linear(F.gelu(F.linear(hm, w1, b1)), w2, b2))
+    mlp_b_ms, mlp_b_by = bound(4.0 * tokens * c * hidden, 4 * tokens * c)
+    print(f"swin_mlp, one {hp}x{wp} frame of {c}, hidden {hidden}: kernel "
+          f"{mlp_ms:.3f} ms, plain {mlp_plain_ms:.3f} ms, library (bf16 "
+          f"F.linear, F.gelu, F.linear; timed only) {mlp_lib_ms:.3f} ms, "
+          f"bound {mlp_b_ms:.3f} ms ({mlp_b_by}; {mlp_b_ms / mlp_ms:.1%} "
+          f"reached) per call (CUDA events, 2 x 10 calls each; {card})")
     return {"launches": launches, "err": worst, "rows": rows,
             "ln": {"launches": ln_launches, "err": ln_err,
                    "timed": (ln_ms, ln_plain_ms),
-                   "bound": (ln_b_ms, ln_b_by)}}
+                   "bound": (ln_b_ms, ln_b_by)},
+            "mlp": {"launches": mlp_launches, "err": mlp_err,
+                    "timed": (mlp_ms, mlp_plain_ms, mlp_lib_ms),
+                    "bound": (mlp_b_ms, mlp_b_by)}}
 
 
 def main() -> int:
@@ -2789,6 +2846,10 @@ def main() -> int:
     rows.append(row("add_layernorm", "rusty_sr_tpu_torch/csrc/add_layernorm.cu",
                     "none (not a TPU kernel)", ln["launches"], ln["err"],
                     ln["timed"], ln["bound"], ln["timed"][1]))
+    mlp = swin["mlp"]
+    rows.append(row("swin_mlp", "rusty_sr_tpu_torch/csrc/swin_mlp.cu",
+                    "none (not a TPU kernel)", mlp["launches"], mlp["err"],
+                    mlp["timed"], mlp["bound"], mlp["timed"][2]))
     # Not a TPU kernel: the int8 engine's products (the JAX package's XLA
     # dot_general) on torch._int_mm, with their launches in phase 4f.
     print(json.dumps({"int8_products": [

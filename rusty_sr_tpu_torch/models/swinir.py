@@ -33,9 +33,14 @@ Two tiers (`prepare`, `forward`):
   block at `prepare` into (heads, 64, 64); each residual add fused with
   the LayerNorm (or the bf16 cast) that reads its sum
   (`ops.cuda.add_layernorm`: 2 * blocks + groups + 2 launches a chunk,
-  80 for SwinIR-M), the stream updated in place;
+  80 for SwinIR-M), the stream updated in place; the MLP (fc1, erf GELU,
+  fc2) one kernel a block (`ops.cuda.swin_mlp`, its plain version on the
+  CPU; 36 launches a chunk for SwinIR-M), the hidden activation rounded
+  once to bf16 and kept on the chip, its weights laid out at `prepare`;
+  qkv and proj remain ``F.linear``;
 - exact: float32 throughout with TF32 off (`ops.conv.exact_f32`), the
-  window attention as plain torch operations (`window_attn_reference`).
+  window attention as plain torch operations (`window_attn_reference`),
+  the MLP as ``F.linear``, ``F.gelu``, ``F.linear``.
 
 Each stage is a `span`: ``swinir.embed`` (conv_first, the patch
 embedding's LayerNorm and the first block's norm1), ``swinir.rstb`` (one
@@ -57,7 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from rusty_sr_tpu_torch.ops.conv import exact_f32, tf32_on_bf16
-from rusty_sr_tpu_torch.ops.cuda import add_layernorm
+from rusty_sr_tpu_torch.ops.cuda import add_layernorm, swin_mlp
 from rusty_sr_tpu_torch.ops.cuda.window_attn import (relative_bias,
                                                      window_attn,
                                                      window_attn_reference)
@@ -187,7 +192,9 @@ def prepare(tree, device="cuda", fast: bool = False) -> dict:
     """The state dict ``tree`` (tensors or arrays; wrapped or bare) on
     ``device`` in the tier's types: linear and conv weights and biases
     bf16 (fast) or f32, LayerNorms f32, each block's relative-position
-    bias gathered to (heads, w*w, w*w) f32 and its shift."""
+    bias gathered to (heads, w*w, w*w) f32 and its shift; in the fast
+    tier each block's MLP as `ops.cuda.swin_mlp.prepare` lays it out
+    (``mlp``), in the exact tier its ``fc1`` and ``fc2``."""
     t = unwrap(tree)
     cfg = config_of(t)
     device = torch.device(device)
@@ -214,10 +221,12 @@ def prepare(tree, device="cuda", fast: bool = False) -> dict:
         blocks = []
         for j in range(depth):
             p = _BLOCK.format(i, j)
+            fc1, fc2 = lin(p + "mlp.fc1"), lin(p + "mlp.fc2")
             blocks.append({
                 "norm1": ln(p + "norm1"), "norm2": ln(p + "norm2"),
                 "qkv": lin(p + "attn.qkv"), "proj": lin(p + "attn.proj"),
-                "fc1": lin(p + "mlp.fc1"), "fc2": lin(p + "mlp.fc2"),
+                **({"mlp": swin_mlp.prepare(fc1, fc2)} if fast
+                   else {"fc1": fc1, "fc2": fc2}),
                 "bias": relative_bias(_t(t[p + "attn.relative_position_"
                                            "bias_table"], device), win),
                 "shift": 0 if j % 2 == 0 else win // 2})
@@ -292,8 +301,12 @@ def _block(t: torch.Tensor, hn: list, blk: dict, nxt, ph: int, pw: int,
     t, h = _add_norm(t, F.linear(o, *blk["proj"]), blk["norm2"], dt, fast,
                      None if fresh else t)
     del o
-    h = F.gelu(F.linear(h, *blk["fc1"]))
-    t, h = _add_norm(t, F.linear(h, *blk["fc2"]), nxt, dt, fast, t)
+    if fast:
+        y = swin_mlp.swin_mlp(h, blk["mlp"])
+    else:
+        y = F.linear(F.gelu(F.linear(h, *blk["fc1"])), *blk["fc2"])
+    del h
+    t, h = _add_norm(t, y, nxt, dt, fast, t)
     hn.append(h)
     return t
 

@@ -154,6 +154,8 @@ def load() -> ctypes.CDLL:
             lib.srt_add_layernorm.argtypes = (
                 [ptr] * 6 + [i64] + [i32] * 3 + [ctypes.c_float, ptr])
             lib.srt_add_layernorm.restype = i32
+            lib.srt_swin_mlp.argtypes = [ptr] * 5 + [i64] + [i32] * 3 + [ptr]
+            lib.srt_swin_mlp.restype = i32
             lib.srt_error_string.argtypes = [i32]
             lib.srt_error_string.restype = ctypes.c_char_p
             _lib = lib
