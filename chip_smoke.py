@@ -125,6 +125,17 @@ Phases, each fatal on failure:
    yardstick; the MLP 259,200 FLOP a token at 989 TFLOP/s, with the
    library's bf16 ``F.linear``, ``F.gelu``, ``F.linear`` timed beside it,
    which the port never calls);
+4h. HAT (`hat_phase`): ``hat_sa16_kernel`` (shift 0 and 8) and
+   ``hat_oca_kernel`` against their plain version at the HAT cell's
+   544x960 tokens, 6 heads of 30 (max 2e-2, mean 2e-3); the
+   add-and-normalise's three-term form against its plain version (the
+   sum bit-identical, h within one bf16 unit); `upscale_batch` on two
+   960x540 frames with seeded HAT x4 weights on the fast tier, the launch
+   counts set to 0 before it (36 window-16 attention, 6 overlapping
+   attention, 42 MLP and 92 add-and-normalise launches a chunk), frame 0
+   within the cell's limits; each kernel and its plain version timed in
+   turns beside its bound, and the branch's cuDNN convolution pair timed
+   beside them;
 5. time each kernel, its plain version and, where one exists, the one
    PyTorch call for the same function (cuDNN's bf16 conv for the conv
    stage) with CUDA events, in turns, beside its bound (the larger of
@@ -1977,6 +1988,187 @@ def swinir_phase(card, frames: int = 4):
                     "bound": (mlp_b_ms, mlp_b_by)}}
 
 
+def hat_phase(card, frames: int = 2):
+    """Phase 4h, HAT x4 on the batch path and its kernels, at the shapes of
+    the benchmark's HAT cell (960x540 frames, padded to 544x960 tokens, 6
+    heads of 30): ``hat_sa16_kernel`` at shift 0 and 8 and
+    ``hat_oca_kernel`` against `hat_attn_reference` on the same bf16
+    inputs (2e-2 largest, 2e-3 mean, as `tests/test_torch_hat.py`); the
+    add-and-normalise's three-term form against its plain version at C =
+    180 (the sum bit-identical, h within one bf16 unit); `upscale_batch`
+    with seeded HAT weights on ``frames`` frames, fast tier, the launch
+    counts set to 0 before it (36 window-16 attention, 6 overlapping
+    attention, 42 MLP and 92 add-and-normalise launches a chunk of the
+    default one frame), its first frame against the reference's float32
+    upscale within the cell's limits
+    (`portbench/limits/hat_x4_frames_fast.json`); then each kernel and its
+    plain version timed in turns beside its bound (the attentions: their
+    FLOP at 989 TFLOP/s or 1,440 bytes a token and the table at 3.35
+    TB/s; the add + norm 14 C bytes a token, its plain version PyTorch's
+    own adds, ``F.layer_norm`` and cast, the yardstick), with cuDNN's bf16
+    ``F.conv2d`` pair of the branch (180 -> 60 -> 180, 3x3) timed beside
+    them as the block's other new work.  Returns {"rows": [(name, kernel
+    ms, plain ms, library ms or None, bound ms, bound by, launches, max
+    err)], "launches": {...}}."""
+    import torch
+    import torch.nn.functional as F
+    from portbench import hat_flops, images
+    from portbench.harness import load_json
+    from portbench.reference import check
+    from portbench.reference import hat as ref
+    from rusty_sr_tpu_torch.api import upscale_batch
+    from rusty_sr_tpu_torch.models import hat
+    from rusty_sr_tpu_torch.ops.cuda import add_layernorm as al
+    from rusty_sr_tpu_torch.ops.cuda import hat_attn as ha
+    from rusty_sr_tpu_torch.ops.cuda import swin_mlp as sm
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_json(os.path.join(root, "portbench/configs/hat_x4.json"))
+    limits = load_json(os.path.join(
+        root, "portbench/limits/hat_x4_frames_fast.json"))
+    dev = torch.device("cuda")
+    hp, wp, c = 544, 960, cfg["embed_dim"]
+    heads, ws = cfg["num_heads"][0], cfg["window_size"]
+    kw = hat_flops.overlap_window(cfg)
+    tokens = hp * wp
+    gen = torch.Generator().manual_seed(SEED)
+    # qkv rows as the fast tier lays them out: 3C channels padded to 544,
+    # the output's to 192 with zero columns
+    qw, pw = 3 * c + (-3 * c) % 8, c + (-c) % 32
+    qkv = torch.randn(1, tokens, qw, generator=gen).to(dev, torch.bfloat16)
+    tabs = {k: ha.offset_table(torch.randn((ws + k - 1) ** 2, heads,
+                                           generator=gen), ws, k).to(dev)
+            for k in (ws, kw)}
+    forms = (("hat_sa16 shift 0", ws, 0), ("hat_sa16 shift 8", ws, ws // 2),
+             ("hat_oca", kw, 0))
+
+    def attn(k, shift):
+        if k == ws:
+            return lambda: ha.sa_attn(qkv, tabs[k], shift, hp, wp, ws, c, pw)
+        return lambda: ha.oca_attn(qkv, tabs[k], hp, wp, ws, k, c, pw)
+
+    def plain(k, shift):
+        return lambda: ha.hat_attn_reference(qkv, tabs[k], shift, hp, wp, ws,
+                                             k, c, pw)
+    errs = {}
+    for name, k, shift in forms:
+        out = attn(k, shift)()
+        if out[..., c:].any():
+            fail(f"{name}: the output's padding columns are not zero")
+        d = (out.float() - ha.hat_attn_reference(
+            qkv.float(), tabs[k], shift, hp, wp, ws, k, c, pw)).abs()
+        mx, mean = float(d.max()), float(d.mean())
+        errs[name] = mx
+        print(f"{name}, {hp}x{wp} tokens, {heads} heads of {c // heads}: max "
+              f"{mx:.2e}, mean {mean:.2e} against the plain version")
+        if mx > 2e-2 or mean > 2e-3:
+            fail(f"{name}: max {mx}, mean {mean}")
+        del d
+
+    # The hybrid block's add + norm: x + y + k * (z + b), then LN, to bf16.
+    bf16 = torch.bfloat16
+    x = (torch.randn(1, tokens, c, generator=gen) * 3.0).to(dev)
+    y = torch.randn(1, tokens, c, generator=gen).to(dev, bf16)
+    z = torch.randn(1, tokens, c, generator=gen).to(dev, bf16)
+    k3 = (0.01 * torch.rand(1, c, generator=gen)).to(dev)
+    b3 = (0.05 * torch.randn(c, generator=gen)).to(dev)
+    norm = (1.0 + 0.1 * torch.randn(c, generator=gen).to(dev),
+            0.1 * torch.randn(c, generator=gen).to(dev))
+    s_k, h_k = al.add_layernorm(x, y, norm, bf16, None, hat.swinir.LN_EPS,
+                                z, k3, b3)
+    s_p, h_p = al.add_layernorm_reference(x, y, norm, bf16, None,
+                                          hat.swinir.LN_EPS, z, k3, b3)
+    d = (h_k.float() - h_p.float()).abs()
+    unit = (torch.exp2(torch.floor(torch.log2(h_p.float().abs().clamp_min(
+        2.0 ** -126))) - 7)).clamp_min(2.0 ** -20)
+    same = float((h_k == h_p).float().mean())
+    errs["add3"] = float(d.max())
+    print(f"add_layernorm, three terms, {hp}x{wp} tokens of {c}: sum "
+          f"{'bit-identical' if torch.equal(s_k, s_p) else 'DIFFERENT'}, h "
+          f"max {errs['add3']:.2e}, {same:.5%} identical to the plain version")
+    if not torch.equal(s_k, s_p) or bool((d > unit).any()) or same < 0.999:
+        fail(f"add_layernorm, three terms: max {errs['add3']}, {same:.5%} "
+             "identical")
+    del s_k, s_p, h_k, h_p, d, unit
+
+    tree = ref.draw_weights(2 ** 31 + SEED, cfg)
+    lr = images.pictures(2 ** 31 + SEED, "frames", frames, 540, 960,
+                         device=dev).cpu().numpy()
+    ha.LAUNCHES_SA = ha.LAUNCHES_OCA = al.LAUNCHES = sm.LAUNCHES = 0
+    outs = upscale_batch(list(lr), weights=tree, factor=4, fast=True,
+                         device=dev)
+    torch.cuda.synchronize()
+    got = {"sa16": ha.LAUNCHES_SA, "oca": ha.LAUNCHES_OCA,
+           "mlp": sm.LAUNCHES, "add_ln": al.LAUNCHES}
+    chunks = -(-frames // hat.DEFAULT_CHUNK)
+    nb, ng = hat_flops.blocks(cfg), hat_flops.groups(cfg)
+    want = {"sa16": nb * chunks, "oca": ng * chunks,
+            "mlp": (nb + ng) * chunks,
+            "add_ln": (2 * (nb + ng) + ng + 2) * chunks}
+    if got != want:
+        fail(f"upscale_batch with HAT weights launched {got} for {frames} "
+             f"frames, not {want}")
+    p = {k_: v.to(dev) for k_, v in tree.items()}
+    gaps = check.image_gaps(outs[0], ref.upscale_u8(p, lr[0], cfg, dev))
+    print(f"upscale_batch, HAT x4, {frames} 960x540 frames (fast): launches "
+          f"{got}; frame 0 against the reference: {gaps} (limits {limits})")
+    if (gaps["max_code_gap"] > limits["max_code_gap"]
+            or gaps["mean_code_gap"] > limits["mean_code_gap"]):
+        fail(f"HAT frame 0 is {gaps} from the reference")
+    del p, outs, tree
+
+    rows = []
+    for name, k, shift in forms:
+        k_ms, p_ms, _ = time_in_turns(plain(k, shift), attn(k, shift))
+        fl = hat_flops.sa_flop_per_token(cfg) if k == ws \
+            else hat_flops.oca_flop_per_token(cfg)
+        b_ms, b_by = bound(fl * tokens, tokens * (
+            hat_flops.attn_bytes_per_token(cfg)
+            + hat_flops.table_bytes_per_token(cfg, k)))
+        n = got["sa16"] if k == ws else got["oca"]
+        rows.append((name, k_ms, p_ms, None, b_ms, b_by, n, errs[name]))
+        print(f"{name}, one {hp}x{wp} frame: kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+              f"{b_ms / k_ms:.1%} reached) per call (CUDA events, 2 x 10 "
+              f"calls each; {card})")
+    a_ms, a_plain_ms, _ = time_in_turns(
+        lambda: al.add_layernorm_reference(x, y, norm, bf16, x,
+                                           hat.swinir.LN_EPS, z, k3, b3),
+        lambda: al.add_layernorm(x, y, norm, bf16, x, hat.swinir.LN_EPS, z,
+                                 k3, b3))
+    a_b_ms, a_b_by = bound(12.0 * tokens * c,
+                           tokens * hat_flops.add3_bytes_per_token(cfg))
+    rows.append(("add_layernorm three terms", a_ms, a_plain_ms, a_plain_ms,
+                 a_b_ms, a_b_by, nb * chunks, errs["add3"]))
+    print(f"add_layernorm, three terms, one {hp}x{wp} frame of {c}, in place: "
+          f"kernel {a_ms:.3f} ms, plain (= library: PyTorch's adds, "
+          f"F.layer_norm and cast) {a_plain_ms:.3f} ms, bound {a_b_ms:.3f} ms "
+          f"({a_b_by}; {a_b_ms / a_ms:.1%} reached) per call (CUDA events, 2 "
+          f"x 10 calls each; {card})")
+    cl = torch.channels_last
+    mid = -(-c // cfg["compress_ratio"] // 8) * 8     # padded as the model
+    hm = y.view(1, hp, wp, c).permute(0, 3, 1, 2)
+    w0 = (torch.randn(mid, c, 3, 3, generator=gen) / (9 * c) ** 0.5).to(
+        dev, bf16).contiguous(memory_format=cl)
+    w2 = (torch.randn(c, mid, 3, 3, generator=gen) / (9 * mid) ** 0.5).to(
+        dev, bf16).contiguous(memory_format=cl)
+
+    b0 = torch.zeros(mid, device=dev, dtype=bf16)
+
+    def branch():       # the model's calls: conv2's bias goes to the add
+        return F.conv2d(F.gelu(F.conv2d(hm, w0, b0, padding=1)), w2,
+                        padding=1)
+    branch()
+    cab_ms = (cuda_time_ms(branch) + cuda_time_ms(branch)) / 2
+    cab_b_ms, cab_b_by = bound(hat_flops.cab_flop_per_px(cfg) * tokens,
+                               tokens * c * 4)
+    print(f"the branch's cuDNN bf16 conv 3x3 {c} -> {mid}, GELU, conv 3x3 "
+          f"{mid} -> {c}, one {hp}x{wp} frame: {cab_ms:.3f} ms, bound "
+          f"{cab_b_ms:.3f} ms ({cab_b_by}; {cab_b_ms / cab_ms:.1%} reached; "
+          f"CUDA events, 2 x 10 calls; {card})")
+    return {"rows": rows, "launches": got, "cab_ms": cab_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2546,6 +2738,9 @@ def main() -> int:
     # 4g. SwinIR through upscale_batch, and its attention kernel checked
     # and timed at the SwinIR cell's shapes.
     swin = swinir_phase(card)
+    # 4h. HAT through upscale_batch, its two attention kernels and the
+    # three-term add + norm checked and timed at the HAT cell's shapes.
+    hat_rows = hat_phase(card)
 
     # 5. Times at the main path's shapes, in turns.  The trunk's work on a
     # 24 x 256^2 chunk: stage extents 252, 248, 246, 244, 242 (the halo
@@ -2850,6 +3045,13 @@ def main() -> int:
     rows.append(row("swin_mlp", "rusty_sr_tpu_torch/csrc/swin_mlp.cu",
                     "none (not a TPU kernel)", mlp["launches"], mlp["err"],
                     mlp["timed"], mlp["bound"], mlp["timed"][2]))
+    # Not TPU kernels: HAT's attentions and its three-term add + norm (the
+    # JAX package runs no transformer), with their launches in phase 4h.
+    for name, k_ms, p_ms, l_ms, b_ms, b_by, n, err in hat_rows["rows"]:
+        src = ("rusty_sr_tpu_torch/csrc/add_layernorm.cu" if "add" in name
+               else "rusty_sr_tpu_torch/csrc/hat_attn.cu")
+        rows.append(row(name, src, "none (not a TPU kernel)", n, err,
+                        (k_ms, p_ms), (b_ms, b_by), l_ms))
     # Not a TPU kernel: the int8 engine's products (the JAX package's XLA
     # dot_general) on torch._int_mm, with their launches in phase 4f.
     print(json.dumps({"int8_products": [

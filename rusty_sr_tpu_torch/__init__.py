@@ -11,9 +11,10 @@ through the epilogue in `csrc/shuffle.cu`; with the JAX package's
 variant knobs), fused (the trunk as the hand-written kernel
 `csrc/trunk.cu`) and int8 (the trunk's merged stages on calibrated int8
 products, `models.quant`) — in the exact (f32) and fast (bf16) tiers;
-the bilinear and downsample modes; SwinIR (`models.swinir`, from its own
-state dict or ``.pth``) on the batch path, whole frames a tile, with the
-fused window-attention kernel `csrc/window_attn.cu`; serving —
+the bilinear and downsample modes; SwinIR (`models.swinir`) and HAT
+(`models.hat`), each from its own state dict or ``.pth``, on the batch
+path, whole frames a tile, with the fused attention kernels
+`csrc/window_attn.cu` and `csrc/hat_attn.cu`; serving —
 `upscale_batch` and the CLI's folder and watch modes, with tiles batched across images, a native
 host codec and pinned, stream-ordered copies; training — `train_folder`
 and the CLI's ``train`` (f32, ``--amp``, ``--trunk packed``,

@@ -39,12 +39,12 @@ def upscale(image: np.ndarray, weights: Union[str, dict] = "imagenet",
     """Upscale an (H,W,3) sRGB image by ``factor``.
 
     ``weights``: a builtin name ('imagenet', 'imagenetlinear', 'anime'),
-    a path to a `.rsr` file, a parameter tree, or SwinIR weights (a state
-    dict in SwinIR's layout, or a path to its ``.pth``), which run as
-    `upscale_batch` runs them, on the xla engine only (ValueError on the
-    others).  ``factor``: 3 for the
-    reference's net when None; SwinIR weights upscale by their own scale
-    and raise for another.  ``engine``: 'xla' (the
+    a path to a `.rsr` file, a parameter tree, or SwinIR or HAT weights (a
+    state dict in the model's own layout, or a path to its ``.pth``),
+    which run as `upscale_batch` runs them, on the xla engine only
+    (ValueError on the others).  ``factor``: 3 for the
+    reference's net when None; SwinIR and HAT weights upscale by their
+    own scale and raise for another.  ``engine``: 'xla' (the
     default; the trunk as conv stages, the u8 path), 'fused' (the trunk
     as one kernel) or 'int8' (the trunk's merged stages on calibrated
     int8 products; the JAX package's quantisation experiment, which its
@@ -97,9 +97,9 @@ def upscale_batch(images, weights: Union[str, dict] = "imagenet",
     delivered.  ``mesh`` (`parallel.mesh.make_mesh`) splits each chunk of
     tiles over its data axis's devices in place of ``device``, with the
     same outputs.  ``weights`` and ``factor`` as in `upscale`: SwinIR
-    weights run each frame whole as one tile of the chunk loop, frames of
-    one size to a chunk, ``chunk`` frames to it (by default
-    `models.swinir.DEFAULT_CHUNK`, one frame).  ``device`` as in
+    and HAT weights run each frame whole as one tile of the chunk loop,
+    frames of one size to a chunk, ``chunk`` frames to it (by default the
+    model's ``DEFAULT_CHUNK``, one frame).  ``device`` as in
     `upscale`.
     """
     from rusty_sr_tpu_torch.parallel.tiling import tiled_sr_batch

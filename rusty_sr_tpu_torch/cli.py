@@ -57,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="which built-in parameters to use with the neural net")
     p.add_argument("-c", "--custom", metavar="PARAMETER_FILE",
                    help="custom parameter file to use with the neural net: "
-                        "a .rsr file, or a SwinIR checkpoint (.pth, whose "
+                        "a .rsr file, or a SwinIR or HAT checkpoint (.pth, "
+                        "whose "
                         "own scale sets the factor)")
     p.add_argument("-d", "--downsample", action="store_true",
                    help="perform downscaling rather than upscaling")
@@ -102,7 +103,8 @@ def build_watch_parser() -> argparse.ArgumentParser:
                    choices=["imagenet", "imagenetlinear", "anime"],
                    help="which built-in parameters to use")
     w.add_argument("-c", "--custom", metavar="PARAMETER_FILE",
-                   help="custom parameter file (.rsr, or a SwinIR .pth)")
+                   help="custom parameter file (.rsr, or a SwinIR or HAT "
+                        ".pth)")
     w.add_argument("-f", "--factor", type=int, default=3)
     w.add_argument("--fast", action="store_true",
                    help="the fast tier (bf16 trunk), as for single images")
@@ -335,8 +337,8 @@ def _run_simple(args, img_u8, device) -> int:
 
 def _load_weights(args):
     """The parameter tree of ``-c`` or ``-p`` (imagenet by default), or
-    the exit code after printing why it cannot be loaded.  A SwinIR
-    checkpoint sets ``args.factor`` to its own scale."""
+    the exit code after printing why it cannot be loaded.  A SwinIR or
+    HAT checkpoint sets ``args.factor`` to its own scale."""
     from rusty_sr_tpu_torch import params as params_lib
     try:
         if args.custom:
@@ -359,6 +361,7 @@ def _load_weights(args):
 
 def run_upscale(args) -> int:
     from rusty_sr_tpu_torch import api
+    from rusty_sr_tpu_torch.models import whole_frame_model
     from rusty_sr_tpu_torch.params import is_checkpoint_path
     from rusty_sr_tpu_torch.utils.imageio import (
         DECODE_ERRORS, check_codec, load_image_u8, save_image, save_image_u8)
@@ -430,12 +433,12 @@ def run_upscale(args) -> int:
             out = api.upscale_batch([img_u8], tree, args.factor, mesh=mesh,
                                     **kw)[0]
     except ValueError:
-        # The one refusal that a checkpoint's weights (SwinIR) add: an
+        # The one refusal that a checkpoint's weights (SwinIR, HAT) add: an
         # engine other than xla.
         if args.engine == "xla" or not is_checkpoint_path(args.custom or ""):
             raise
-        print("\nerror: SwinIR weights run on --engine xla only",
-              file=sys.stderr)
+        print(f"\nerror: {whole_frame_model(tree).NAME} weights run on "
+              "--engine xla only", file=sys.stderr)
         return 2
     print(" Writing file...", end="", flush=True)
     try:

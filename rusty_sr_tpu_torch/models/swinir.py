@@ -69,6 +69,7 @@ from rusty_sr_tpu_torch.ops.cuda.window_attn import (relative_bias,
 from rusty_sr_tpu_torch.ops.pixel_shuffle import depth_to_space
 from rusty_sr_tpu_torch.utils.profiling import span
 
+NAME = "SwinIR"
 # The classical-SR models' RGB mean (DIV2K) and image range.
 MEAN = (0.4488, 0.4371, 0.4040)
 IMG_RANGE = 1.0
@@ -97,22 +98,21 @@ def unwrap(tree) -> dict:
     return tree
 
 
-def is_swinir(tree) -> bool:
-    """True for a SwinIR state dict, wrapped or bare."""
-    t = unwrap(tree)
+def _swin_layout(t) -> bool:
+    """True for a state dict with SwinIR's stem and block layout (which
+    HAT's shares)."""
     return isinstance(t, dict) and "conv_first.weight" in t \
         and _BLOCK.format(0, 0) + "attn.qkv.weight" in t
 
 
-def load_pth(path: str) -> dict:
-    """A SwinIR checkpoint file (``torch.save`` of a state dict, wrapped in
-    ``params_ema`` or ``params`` or bare) -> its state dict; ValueError for
-    a file that holds no SwinIR state dict."""
-    tree = unwrap(torch.load(path, map_location="cpu", weights_only=True))
-    if not is_swinir(tree):
-        raise ValueError(f"{path} holds no SwinIR state dict (no "
-                         "'conv_first.weight' and 'layers.0...qkv.weight')")
-    return tree
+def is_swinir(tree) -> bool:
+    """True for a SwinIR state dict, wrapped or bare; False for HAT's
+    (`models.hat`), whose blocks carry a convolution branch and whose
+    groups end in an overlapping cross-attention block."""
+    t = unwrap(tree)
+    return _swin_layout(t) \
+        and _BLOCK.format(0, 0) + "conv_block.cab.0.weight" not in t \
+        and "layers.0.residual_group.overlap_attn.qkv.weight" not in t
 
 
 def _shape(tree, key) -> tuple:
@@ -129,8 +129,15 @@ def config_of(tree) -> dict:
     t = unwrap(tree)
     if not is_swinir(t):
         raise ValueError("not a SwinIR state dict")
+    return layout_config(t, "SwinIR")
+
+
+def layout_config(t: dict, name: str) -> dict:
+    """`config_of`'s widths of a bare state dict in SwinIR's layout (and
+    HAT's, which shares its stem, blocks and upsampler); ``name`` for the
+    refusals."""
     if "absolute_pos_embed" in t:
-        raise ValueError("SwinIR with ape=True is not supported")
+        raise ValueError(f"{name} with ape=True is not supported")
     if "layers.0.conv.weight" not in t:
         raise ValueError("only resi_connection='1conv' is supported")
     if "conv_before_upsample.0.weight" not in t:
@@ -188,6 +195,73 @@ def _d2s_order(w: torch.Tensor, factor: int) -> torch.Tensor:
     return w[perm.to(w.device)]
 
 
+class Weights:
+    """A bare state dict's tensors on ``device`` in a tier's types
+    (``dt``: bf16 for the fast tier, f32 for the exact one)."""
+
+    def __init__(self, t: dict, device, dt):
+        self.t, self.device, self.dt = t, device, dt
+
+    def conv(self, name, fixed=None) -> tuple:
+        """A convolution's (weight in channels-last memory, bias) in
+        ``dt``; ``fixed`` reorders both first."""
+        w = _t(self.t[name + ".weight"], self.device)
+        b = _t(self.t[name + ".bias"], self.device)
+        if fixed is not None:
+            w, b = fixed(w), fixed(b)
+        return (w.to(self.dt).contiguous(memory_format=torch.channels_last),
+                b.to(self.dt))
+
+    def lin(self, name) -> tuple:
+        """A linear layer's (weight, bias) in ``dt``."""
+        return _t(self.t[name + ".weight"], self.device, self.dt), \
+            _t(self.t[name + ".bias"], self.device, self.dt)
+
+    def ln(self, name) -> tuple:
+        """A LayerNorm's (weight, bias) in f32."""
+        return _t(self.t[name + ".weight"], self.device), \
+            _t(self.t[name + ".bias"], self.device)
+
+    def mlp(self, prefix, fast: bool) -> dict:
+        """A block's MLP: as `ops.cuda.swin_mlp.prepare` lays it out
+        (``mlp``) in the fast tier, its ``fc1`` and ``fc2`` in the exact
+        one."""
+        fc1, fc2 = self.lin(prefix + "mlp.fc1"), self.lin(prefix + "mlp.fc2")
+        return {"mlp": swin_mlp.prepare(fc1, fc2)} if fast \
+            else {"fc1": fc1, "fc2": fc2}
+
+
+def prepare_ends(wt: Weights, cfg: dict, fast: bool) -> dict:
+    """The network's stem and tail, shared with HAT: the mean, conv_first,
+    the patch embedding's and the final LayerNorm, conv_after_body, the
+    pixel-shuffle upsampler (its weights in `ops.pixel_shuffle`'s channel
+    order) and conv_last (bf16 operands summed in f32 in the fast
+    tier)."""
+    t, device = wt.t, wt.device
+    ups, k = [], 0
+    while f"upsample.{k}.weight" in t:
+        r = math.isqrt(_shape(t, f"upsample.{k}.weight")[0]
+                       // cfg["num_feat"])
+        ups.append((wt.conv(f"upsample.{k}",
+                            lambda v, r=r: _d2s_order(v, r)), r))
+        k += 2
+    wl, bl = _t(t["conv_last.weight"], device), _t(t["conv_last.bias"],
+                                                   device)
+    if fast:        # bf16 operands, f32 sums and output
+        wl = wl.to(wt.dt).float()
+    return {"cfg": cfg, "fast": fast, "dtype": wt.dt,
+            "mean": torch.tensor(cfg["mean"], device=device).view(1, -1, 1, 1),
+            "conv_first": wt.conv("conv_first"),
+            "patch_norm": wt.ln("patch_embed.norm") if cfg["patch_norm"]
+            else None,
+            "norm": wt.ln("norm"),
+            "conv_after_body": wt.conv("conv_after_body"),
+            "conv_before_upsample": wt.conv("conv_before_upsample.0"),
+            "upsample": ups,
+            "conv_last": (wl.contiguous(memory_format=torch.channels_last),
+                          bl)}
+
+
 def prepare(tree, device="cuda", fast: bool = False) -> dict:
     """The state dict ``tree`` (tensors or arrays; wrapped or bare) on
     ``device`` in the tier's types: linear and conv weights and biases
@@ -198,74 +272,41 @@ def prepare(tree, device="cuda", fast: bool = False) -> dict:
     t = unwrap(tree)
     cfg = config_of(t)
     device = torch.device(device)
-    dt = torch.bfloat16 if fast else torch.float32
-    cl = torch.channels_last
-
-    def conv(name, fixed=None):
-        w = _t(t[name + ".weight"], device)
-        b = _t(t[name + ".bias"], device)
-        if fixed is not None:
-            w, b = fixed(w), fixed(b)
-        return (w.to(dt).contiguous(memory_format=cl), b.to(dt))
-
-    def lin(name):
-        return _t(t[name + ".weight"], device, dt), \
-            _t(t[name + ".bias"], device, dt)
-
-    def ln(name):
-        return _t(t[name + ".weight"], device), _t(t[name + ".bias"], device)
-
+    wt = Weights(t, device, torch.bfloat16 if fast else torch.float32)
     win = cfg["window_size"]
     layers = []
     for i, depth in enumerate(cfg["depths"]):
         blocks = []
         for j in range(depth):
             p = _BLOCK.format(i, j)
-            fc1, fc2 = lin(p + "mlp.fc1"), lin(p + "mlp.fc2")
             blocks.append({
-                "norm1": ln(p + "norm1"), "norm2": ln(p + "norm2"),
-                "qkv": lin(p + "attn.qkv"), "proj": lin(p + "attn.proj"),
-                **({"mlp": swin_mlp.prepare(fc1, fc2)} if fast
-                   else {"fc1": fc1, "fc2": fc2}),
+                "norm1": wt.ln(p + "norm1"), "norm2": wt.ln(p + "norm2"),
+                "qkv": wt.lin(p + "attn.qkv"),
+                "proj": wt.lin(p + "attn.proj"), **wt.mlp(p, fast),
                 "bias": relative_bias(_t(t[p + "attn.relative_position_"
                                            "bias_table"], device), win),
                 "shift": 0 if j % 2 == 0 else win // 2})
-        layers.append({"blocks": blocks, "conv": conv(f"layers.{i}.conv")})
-    ups, k = [], 0
-    while f"upsample.{k}.weight" in t:
-        r = math.isqrt(_shape(t, f"upsample.{k}.weight")[0]
-                       // cfg["num_feat"])
-        ups.append((conv(f"upsample.{k}",
-                         lambda v, r=r: _d2s_order(v, r)), r))
-        k += 2
-    wl, bl = _t(t["conv_last.weight"], device), _t(t["conv_last.bias"],
-                                                   device)
-    if fast:        # bf16 operands, f32 sums and output
-        wl = wl.to(dt).float()
-    return {"cfg": cfg, "fast": fast, "dtype": dt,
-            "mean": torch.tensor(cfg["mean"], device=device).view(1, -1, 1, 1),
-            "conv_first": conv("conv_first"),
-            "patch_norm": ln("patch_embed.norm") if cfg["patch_norm"]
-            else None,
-            "layers": layers, "norm": ln("norm"),
-            "conv_after_body": conv("conv_after_body"),
-            "conv_before_upsample": conv("conv_before_upsample.0"),
-            "upsample": ups,
-            "conv_last": (wl.contiguous(memory_format=cl), bl)}
+        layers.append({"blocks": blocks,
+                       "conv": wt.conv(f"layers.{i}.conv")})
+    return {**prepare_ends(wt, cfg, fast), "layers": layers}
 
 
-def _add_norm(x: torch.Tensor, y, norm, dt, fast: bool, x_out=None) -> tuple:
+def _add_norm(x: torch.Tensor, y, norm, dt, fast: bool, x_out=None,
+              z=None, z_scale=None, z_bias=None, h_width=None) -> tuple:
     """(s, h) of `ops.cuda.add_layernorm`: ``s = x + y`` (into ``x_out``;
-    ``x`` where no ``y``) and ``h`` = LN(s) (or s) in ``dt``.  The fast
-    tier calls the op, which launches the kernel on CUDA tensors (and
-    raises for a width it refuses) and runs the plain version on CPU
-    tensors; the exact tier takes the plain version, inside
-    ``swinir.norm_plain``."""
+    ``x`` where no ``y``; HAT's third term ``z_scale * (z + z_bias)``
+    added after ``y``) and ``h`` = LN(s) (or s) in ``dt`` (rows of
+    ``h_width``, zero-padded).  The fast tier calls the
+    op, which launches the kernel on CUDA tensors (and raises for a width
+    it refuses) and runs the plain version on CPU tensors; the exact tier
+    takes the plain version, inside ``swinir.norm_plain``."""
     if fast:
-        return add_layernorm.add_layernorm(x, y, norm, dt, x_out, LN_EPS)
+        return add_layernorm.add_layernorm(x, y, norm, dt, x_out, LN_EPS,
+                                           z, z_scale, z_bias, h_width)
     with span("swinir.norm_plain"):
         return add_layernorm.add_layernorm_reference(x, y, norm, dt, x_out,
-                                                     LN_EPS)
+                                                     LN_EPS, z, z_scale,
+                                                     z_bias, h_width)
 
 
 def _to_map(t: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -301,14 +342,19 @@ def _block(t: torch.Tensor, hn: list, blk: dict, nxt, ph: int, pw: int,
     t, h = _add_norm(t, F.linear(o, *blk["proj"]), blk["norm2"], dt, fast,
                      None if fresh else t)
     del o
-    if fast:
-        y = swin_mlp.swin_mlp(h, blk["mlp"])
-    else:
-        y = F.linear(F.gelu(F.linear(h, *blk["fc1"])), *blk["fc2"])
+    y = mlp(h, blk, fast)
     del h
     t, h = _add_norm(t, y, nxt, dt, fast, t)
     hn.append(h)
     return t
+
+
+def mlp(h: torch.Tensor, blk: dict, fast: bool) -> torch.Tensor:
+    """A block's MLP on its normed tokens: `ops.cuda.swin_mlp` (fast),
+    or ``F.linear``, ``F.gelu``, ``F.linear``."""
+    if fast:
+        return swin_mlp.swin_mlp(h, blk["mlp"])
+    return F.linear(F.gelu(F.linear(h, *blk["fc1"])), *blk["fc2"])
 
 
 def forward(net: dict, x: torch.Tensor, to_u8: bool = True) -> torch.Tensor:
@@ -322,21 +368,12 @@ def forward(net: dict, x: torch.Tensor, to_u8: bool = True) -> torch.Tensor:
 
 def _forward(net: dict, x: torch.Tensor, to_u8: bool) -> torch.Tensor:
     cfg, fast, dt = net["cfg"], net["fast"], net["dtype"]
-    nf, h, w, _ = x.shape
-    s = cfg["upscale"]
+    h, w = x.shape[1:3]
     ph, pw = padded_size(h, w, cfg["window_size"])
+    layers = net["layers"]
     with span("swinir.embed"):
-        x = x.permute(0, 3, 1, 2)
-        x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-        x = (x - net["mean"]) * cfg["img_range"]
-        x = F.pad(x, (0, pw - w, 0, ph - h), mode="reflect")
-        f0 = _conv(x.to(dt), net["conv_first"])
-        _, t = _add_norm(_to_tokens(f0), None, net["patch_norm"],
-                         torch.float32, fast)
-        layers = net["layers"]
-        # the stream's normed bf16 copy, held only here between its uses
-        hn = [_add_norm(t, None, layers[0]["blocks"][0]["norm1"], dt,
-                        fast)[1]]
+        f0, t, hn = embed(net, x, ph, pw, layers[0]["blocks"][0]["norm1"])
+        hn = [hn]
     for i, layer in enumerate(layers):
         with span("swinir.rstb"):
             r, blocks = t, layer["blocks"]
@@ -349,21 +386,55 @@ def _forward(net: dict, x: torch.Tensor, to_u8: bool) -> torch.Tensor:
             t, normed = _add_norm(r, y, nxt, dt, fast, r)
             hn.append(normed)
             del r, y, normed
+    del t
     with span("swinir.upsample"):
-        b = _conv(_to_map(hn.pop(), ph, pw), net["conv_after_body"]) + f0
-        del t, f0
-        y = F.leaky_relu(_conv(b, net["conv_before_upsample"]), 0.01)
-        for wb, r in net["upsample"]:
-            y = depth_to_space(_conv(y, wb).permute(0, 2, 3, 1), r) \
-                .permute(0, 3, 1, 2)
-        if fast:
-            with tf32_on_bf16():
-                y = _conv(y.float(), net["conv_last"])
-        else:
-            y = _conv(y, net["conv_last"])
-        y = (y / cfg["img_range"] + net["mean"])[:, :, :s * h, :s * w]
-        y = y.permute(0, 2, 3, 1)
-        if to_u8:
-            y = torch.floor(torch.clamp(y, 0.0, 1.0) * 255.0 + 0.5) \
-                .to(torch.uint8)
-        return y.contiguous()
+        return upsample(net, hn.pop(), [f0], h, w, to_u8)
+
+
+def embed(net: dict, x: torch.Tensor, ph: int, pw: int, norm1,
+          h_width=None) -> tuple:
+    """The stem on (F, H, W, 3) frames: (f0, t, h), conv_first's output
+    (F, C, ph, pw) in channels-last memory, the f32 stream (F, ph*pw, C)
+    after the patch embedding's LayerNorm, and its ``norm1`` in the tier's
+    type (the first block's input; rows of ``h_width``, zero-padded, as
+    `ops.cuda.add_layernorm` writes them)."""
+    cfg, fast, dt = net["cfg"], net["fast"], net["dtype"]
+    h, w = x.shape[1:3]
+    x = x.permute(0, 3, 1, 2)
+    x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+    x = (x - net["mean"]) * cfg["img_range"]
+    x = F.pad(x, (0, pw - w, 0, ph - h), mode="reflect")
+    f0 = _conv(x.to(dt), net["conv_first"])
+    _, t = _add_norm(_to_tokens(f0), None, net["patch_norm"], torch.float32,
+                     fast)
+    return f0, t, _add_norm(t, None, norm1, dt, fast, h_width=h_width)[1]
+
+
+def upsample(net: dict, hn: torch.Tensor, f0: list, h: int, w: int,
+             to_u8: bool) -> torch.Tensor:
+    """The tail: conv_after_body on ``hn`` (the final LayerNorm's output,
+    (F, ph*pw, C) tokens) plus ``f0.pop()`` (conv_first's output, handed
+    in a list so that it is freed here), conv_before_upsample, the
+    upsampler and conv_last; the (F, s*h, s*w, 3) frames as `forward`
+    returns them."""
+    cfg, fast = net["cfg"], net["fast"]
+    s = cfg["upscale"]
+    ph, pw = f0[0].shape[2:]
+    b = _conv(_to_map(hn, ph, pw), net["conv_after_body"]) + f0.pop()
+    del hn
+    y = F.leaky_relu(_conv(b, net["conv_before_upsample"]), 0.01)
+    del b
+    for wb, r in net["upsample"]:
+        y = depth_to_space(_conv(y, wb).permute(0, 2, 3, 1), r) \
+            .permute(0, 3, 1, 2)
+    if fast:
+        with tf32_on_bf16():
+            y = _conv(y.float(), net["conv_last"])
+    else:
+        y = _conv(y, net["conv_last"])
+    y = (y / cfg["img_range"] + net["mean"])[:, :, :s * h, :s * w]
+    y = y.permute(0, 2, 3, 1)
+    if to_u8:
+        y = torch.floor(torch.clamp(y, 0.0, 1.0) * 255.0 + 0.5) \
+            .to(torch.uint8)
+    return y.contiguous()

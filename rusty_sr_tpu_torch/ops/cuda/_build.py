@@ -152,8 +152,11 @@ def load() -> ctypes.CDLL:
                                             + [ctypes.c_float, ptr])
             lib.srt_window_attn.restype = i32
             lib.srt_add_layernorm.argtypes = (
-                [ptr] * 6 + [i64] + [i32] * 3 + [ctypes.c_float, ptr])
+                [ptr] * 9 + [i64] * 2 + [i32] * 5 + [ctypes.c_float, ptr])
             lib.srt_add_layernorm.restype = i32
+            lib.srt_hat_attn.argtypes = ([ptr] * 3 + [i32] * 9
+                                         + [ctypes.c_float, ptr])
+            lib.srt_hat_attn.restype = i32
             lib.srt_swin_mlp.argtypes = [ptr] * 5 + [i64] + [i32] * 3 + [ptr]
             lib.srt_swin_mlp.restype = i32
             lib.srt_error_string.argtypes = [i32]

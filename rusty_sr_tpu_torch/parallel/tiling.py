@@ -22,9 +22,10 @@ optionally split over the devices of a mesh's data axis; and of its
   also the one point where the weights choose the network: the
   reference's net (`models.sr_net`) takes one grid of ``tile``-sided
   tiles with the HALO above, numbered across the images so that a chunk
-  spans them; SwinIR (`models.swinir`, the xla engine only) takes whole
-  frames as its tiles, reflect-padded on the card to whole windows, with
-  no halo (`models.swinir.HALO`), frames of one size to a chunk.
+  spans them; SwinIR and HAT (`models.swinir`, `models.hat`, told apart
+  by `models.whole_frame_model`; the xla engine only) take whole frames
+  as their tiles, reflect-padded on the card to whole windows, with no
+  halo (the model's ``HALO``), frames of one size to a chunk.
 - Tiles run in chunks of a fixed size (the last chunk padded), and at
   most ``_MAX_INFLIGHT`` chunks are queued on the device before the
   oldest is fetched and scattered (`_run_chunks`, one loop for every
@@ -43,7 +44,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from rusty_sr_tpu_torch.models import swinir
+from rusty_sr_tpu_torch.models import whole_frame_model
 from rusty_sr_tpu_torch.ops.activations import belu
 from rusty_sr_tpu_torch.ops.color import linear_to_srgb, srgb_to_linear
 from rusty_sr_tpu_torch.ops.conv import bf16_split, conv2d_same
@@ -766,19 +767,20 @@ def _grid(params, imgs, factor: int, tile: int, chunk, fast: bool, devices,
     """The one neural path of `tiled_sr` and `tiled_sr_batch`, and the one
     point where the weights choose the network.
 
-    SwinIR weights run whole frames (`_whole_frames_batch`), on the xla
-    engine only.  The reference's net runs on the tile grid: each image
+    SwinIR and HAT weights (`models.whole_frame_model`) run whole frames
+    (`_whole_frames_batch`), on the xla engine only.  The reference's net runs on the tile grid: each image
     is cut into its (ny, nx) tiles, numbered across the images in order,
     so that a chunk spans images; ``runner(device)`` builds each device's
     tile kernel, (run, use_packed), under ``tiled.prepare``; a chunk is
     gathered from the images it meets and scattered across them by
     `_drain_batch_chunk` (``on_image_done`` and ``release_outputs`` as
     in `tiled_sr_batch`).  The outputs in input order."""
-    if swinir.is_swinir(params):
+    model = whole_frame_model(params)
+    if model is not None:
         if engine != "xla":
-            raise ValueError(f"SwinIR runs on the 'xla' engine only, not "
-                             f"{engine!r}")
-        return _whole_frames_batch(params, imgs, factor, chunk, fast,
+            raise ValueError(f"{model.NAME} runs on the 'xla' engine only, "
+                             f"not {engine!r}")
+        return _whole_frames_batch(model, params, imgs, factor, chunk, fast,
                                    devices, on_image_done, release_outputs)
     chunk = _DEFAULT_CHUNK if chunk is None else chunk
     h = HALO
@@ -843,8 +845,8 @@ def tiled_sr(params, image: np.ndarray, factor: int = 3, *, tile: int = 242,
     "int8" (`_tile_kernel_q8`: the trunk's merged stages on int8 products,
     calibrated on tiles taken evenly across the image).
     ``compute_dtype`` None (or float32) is the exact tier; bfloat16 the
-    fast tier.  SwinIR weights run as `tiled_sr_batch` runs them, on the
-    xla engine only (ValueError on the others).
+    fast tier.  SwinIR and HAT weights run as `tiled_sr_batch` runs them,
+    on the xla engine only (ValueError on the others).
 
     The JAX package's variant knobs, which change only the xla engine's
     fast tier: ``trunk="flat"`` takes the flat tile kernel where "auto"
@@ -913,10 +915,10 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
     The tier is `tiled_sr`'s: exact for ``compute_dtype`` None, fast for
     bfloat16 (the packed tier on uint8 tiles of an even padded side, the
     flat tier otherwise, with `tiled_sr`'s ``out16``).  ``params`` may
-    also be a SwinIR state dict (`models.swinir`): each frame is then
-    one tile (`_whole_frames_batch`), ``tile`` and ``out16`` are checked
-    but not used, ``chunk`` counts frames, and ``factor`` must be the
-    weights' scale.  The int8 engine is
+    also be a SwinIR or HAT state dict (`models.swinir`, `models.hat`):
+    each frame is then one tile (`_whole_frames_batch`), ``tile`` and
+    ``out16`` are checked but not used, ``chunk`` counts frames, and
+    ``factor`` must be the weights' scale.  The int8 engine is
     `tiled_sr`'s alone, as in the JAX package.  ``on_image_done(i,
     out)`` is called on the caller's thread, in ascending ``i``, once the
     chunk that holds image i's last tile is scattered, while later chunks
@@ -947,13 +949,15 @@ def tiled_sr_batch(params, images, factor: int = 3, *, tile: int = 242,
                  release_outputs=release_outputs)
 
 
-def _whole_frames_batch(params, imgs, factor: int, chunk, fast: bool,
-                        devices, on_image_done=None,
+def _whole_frames_batch(model, params, imgs, factor: int, chunk,
+                        fast: bool, devices, on_image_done=None,
                         release_outputs: bool = False) -> list:
-    """`tiled_sr_batch` for SwinIR weights: every frame one tile of the
+    """`tiled_sr_batch` for the weights of a whole-frame network,
+    ``model`` (`models.swinir` or `models.hat`, whose ``prepare`` and
+    ``forward`` run it): every frame one tile of the
     chunk loop, with no halo.  Frames are grouped by size, in the order
     each size first appears, and each group runs through `_run_chunks`:
-    ``chunk`` frames a chunk (None: `models.swinir.DEFAULT_CHUNK`, cut so
+    ``chunk`` frames a chunk (None: the model's ``DEFAULT_CHUNK``, cut so
     that the group's chunks come out as even as they can), gathered as
     they are into the pinned slots; on the card the network pads each
     to whole windows, runs, crops and quantises, and the HR frames come
@@ -966,7 +970,7 @@ def _whole_frames_batch(params, imgs, factor: int, chunk, fast: bool,
     clipped to [0, 1]."""
     s = weights_factor(params, factor)
     with span("tiled.prepare"):
-        nets = [swinir.prepare(params, d, fast) for d in devices]
+        nets = [model.prepare(params, d, fast) for d in devices]
     u8_io = imgs[0].dtype == np.uint8
     dt = torch.uint8 if u8_io else torch.float32
     with span("tiled.outputs"):     # each HR frame is written whole
@@ -990,12 +994,12 @@ def _whole_frames_batch(params, imgs, factor: int, chunk, fast: bool,
 
     def runner(net):
         if u8_io:
-            return lambda x: swinir.forward(net, x)
-        return lambda x: swinir.forward(net, x, to_u8=False).clamp_(0, 1)
+            return lambda x: model.forward(net, x)
+        return lambda x: model.forward(net, x, to_u8=False).clamp_(0, 1)
 
     runs = [runner(net) for net in nets]
     for (h, w), idx in groups.items():
-        k = chunk or swinir.DEFAULT_CHUNK
+        k = chunk or model.DEFAULT_CHUNK
         _frame_group(devices, runs, imgs, idx, outs, s,
                      -(-len(idx) // -(-len(idx) // k)), dt, deliver)
     return outs

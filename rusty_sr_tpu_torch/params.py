@@ -162,30 +162,31 @@ def load_rsr_file(path: str, factor: int) -> Pytree:
 
 
 def is_checkpoint_path(path: str) -> bool:
-    """A PyTorch checkpoint file (``.pth``, ``.pt``), as SwinIR's released
-    weights are, rather than a `.rsr` file."""
+    """A PyTorch checkpoint file (``.pth``, ``.pt``), as SwinIR's and
+    HAT's released weights are, rather than a `.rsr` file."""
     return str(path).lower().endswith((".pth", ".pt"))
 
 
 def load_weights_file(path: str, factor: int = 3):
-    """A parameter file by its kind: a SwinIR checkpoint
-    (`models.swinir.load_pth`, its own scale) or a `.rsr` file of the
+    """A parameter file by its kind: a SwinIR or HAT checkpoint
+    (`models.load_pth`, its own scale) or a `.rsr` file of the
     reference's net at ``factor``."""
     if is_checkpoint_path(path):
-        from rusty_sr_tpu_torch.models.swinir import load_pth
+        from rusty_sr_tpu_torch.models import load_pth
         return load_pth(path)
     return load_rsr_file(path, factor)
 
 
 def weights_factor(tree, factor=None) -> int:
-    """The factor to run ``tree`` at: a SwinIR state dict's own scale
-    (ValueError if ``factor`` names another), else ``factor``, 3 when
-    None."""
-    from rusty_sr_tpu_torch.models import swinir
-    if swinir.is_swinir(tree):
-        s = swinir.config_of(tree)["upscale"]
+    """The factor to run ``tree`` at: a SwinIR or HAT state dict's own
+    scale (ValueError if ``factor`` names another), else ``factor``, 3
+    when None."""
+    from rusty_sr_tpu_torch.models import whole_frame_model
+    model = whole_frame_model(tree)
+    if model is not None:
+        s = model.config_of(tree)["upscale"]
         if factor is not None and factor != s:
-            raise ValueError(f"the SwinIR weights upscale x{s}, not "
+            raise ValueError(f"the {model.NAME} weights upscale x{s}, not "
                              f"x{factor}")
         return s
     return 3 if factor is None else factor

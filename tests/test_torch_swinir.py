@@ -35,7 +35,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import swinir_reference as ref  # noqa: E402
 
 from rusty_sr_tpu_torch import api, params  # noqa: E402
-from rusty_sr_tpu_torch.models import swinir  # noqa: E402
+from rusty_sr_tpu_torch.models import (load_pth, swinir,  # noqa: E402
+                                       whole_frame_model)
 from rusty_sr_tpu_torch.ops.cuda import window_attn as wa  # noqa: E402
 from rusty_sr_tpu_torch.parallel import tiling  # noqa: E402
 
@@ -244,8 +245,9 @@ def test_official_layout_loads(tree, tmp_path, wrap):
     buffers the released files carry, wrapped or bare."""
     path = str(tmp_path / "swinir.pth")
     torch.save({wrap: tree} if wrap else tree, path)
-    loaded = swinir.load_pth(path)
+    loaded = load_pth(path)
     assert set(loaded) == set(tree)
+    assert whole_frame_model(loaded) is swinir
     assert swinir.config_of(loaded)["depths"] == [2, 2]
     img = _frames(10, 1, 24, 32)[0]
     np.testing.assert_array_equal(
