@@ -106,7 +106,9 @@ Phases, each fatal on failure:
    beside it and its bound (a JSON line ``{"int8_products": ...}``);
 4g. SwinIR (`swinir_phase`): ``window_attn_kernel`` against its plain
    version at the SwinIR cell's 544x960 tokens, shift 0 and 4 (max 2e-2,
-   mean 2e-3); ``add_layernorm_kernel`` against its plain version on the
+   mean 2e-3), and on the fast tier's padded rows (544 in with NaN in the
+   padding, 192 out: bit-identical to SwinIR's own rows, the padding
+   columns zero); ``add_layernorm_kernel`` against its plain version on the
    same tokens at C = 180, in each of the forward's four forms, in place
    and out of place (the sum bit-identical, x untouched out of place, a
    bf16 h within one unit everywhere and identical on 99.9%, an f32 h
@@ -118,9 +120,13 @@ Phases, each fatal on failure:
    SwinIR-M x4 weights on the fast tier, the launch counts set to 0
    before it (36 attention, 80 add-and-normalise and 36 MLP launches a
    chunk of the default one frame), frame 0 within the cell's code-gap
-   limits of the reference's float32 upscale; each kernel and its plain
+   limits of the reference's float32 upscale, and the SHA-256 of frame 0
+   in the fast and the exact tier; each kernel and its plain
    version timed in turns beside its bound (attention at each shift:
-   1,440 bytes a token at 3.35 TB/s; the add + norm 2,160 bytes a token:
+   1,440 bytes a token at 3.35 TB/s, and on SwinIR's own rows, the
+   padded rows, and padded input rows read 4 bytes a lane, in turns; the
+   qkv and proj GEMMs and the group's convolution on SwinIR's own and
+   the padded rows, in turns; the add + norm 2,160 bytes a token:
    its plain version is PyTorch's own add, ``F.layer_norm`` and cast, the
    yardstick; the MLP 259,200 FLOP a token at 989 TFLOP/s, with the
    library's bf16 ``F.linear``, ``F.gelu``, ``F.linear`` timed beside it,
@@ -133,9 +139,9 @@ Phases, each fatal on failure:
    960x540 frames with seeded HAT x4 weights on the fast tier, the launch
    counts set to 0 before it (36 window-16 attention, 6 overlapping
    attention, 42 MLP and 92 add-and-normalise launches a chunk), frame 0
-   within the cell's limits; each kernel and its plain version timed in
-   turns beside its bound, and the branch's cuDNN convolution pair timed
-   beside them;
+   within the cell's limits, and its SHA-256; each kernel and its plain
+   version timed in turns beside its bound, and the branch's cuDNN
+   convolution pair timed beside them;
 5. time each kernel, its plain version and, where one exists, the one
    PyTorch call for the same function (cuDNN's bf16 conv for the conv
    stage) with CUDA events, in turns, beside its bound (the larger of
@@ -229,6 +235,12 @@ def cuda_time_ms(fn, iters: int = 10) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def sha256(a) -> str:
+    """The first 16 hex digits of the SHA-256 of an array's bytes."""
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
 
 
 def time_in_turns(plain, kernel, library=None):
@@ -1792,9 +1804,15 @@ def swinir_phase(card, frames: int = 4):
     shift), beside its bound; ``swin_mlp_kernel`` likewise against
     `swin_mlp_reference` at C = 180, hidden 360 (as
     `tests/test_torch_swin_mlp.py`), with 36 launches a chunk, and timed
-    with the library's bf16 composition.  Returns {"launches": n, "err":
-    worst max gap, "rows": [(shift, kernel ms, plain ms, bound ms, bound
-    by)], "ln": {"launches", "err", "timed": (kernel ms, plain ms),
+    with the library's bf16 composition.  The attention also on the fast
+    tier's padded rows (`swinir.row_widths`), held bit-identical to the
+    call on SwinIR's own rows, and timed in turns on both, as are cuBLAS's
+    qkv and proj and cuDNN's group convolution.  Returns {"launches": n,
+    "err": worst max gap, "rows": [(shift, kernel ms, plain ms, bound ms,
+    bound by)], "layout": [(shift, padded ms, own rows ms, padded rows
+    read 4 bytes a lane ms)], "gemms": [(name, own rows ms, padded ms,
+    bound ms, bound by)], "conv": (own rows ms, padded ms), "ln":
+    {"launches", "err", "timed": (kernel ms, plain ms),
     "bound": (ms, by)}, "mlp": {the same, "timed": (kernel ms, plain ms,
     library ms)}}."""
     import torch
@@ -1819,18 +1837,30 @@ def swinir_phase(card, frames: int = 4):
     gen = torch.Generator().manual_seed(SEED)
     qkv = torch.randn(1, hp * wp, 3 * c, generator=gen).to(dev, torch.bfloat16)
     bias = wa.relative_bias(torch.randn(225, heads, generator=gen).to(dev))
+    # the fast tier's rows: qkv's padded to qw (NaN in the padding here,
+    # which must not reach the output), the output's to ow
+    cw, qw, ow = swinir.row_widths(c, True)
+    wide = F.pad(qkv, (0, qw - 3 * c), value=float("nan"))
     worst, rows = 0.0, []
     for shift in (0, 4):
-        d = (wa.window_attn(qkv, bias, shift, hp, wp).float()
+        narrow = wa.window_attn(qkv, bias, shift, hp, wp)
+        d = (narrow.float()
              - wa.window_attn_reference(qkv.float(), bias, shift, hp, wp)
              ).abs()
         mx, mean = float(d.max()), float(d.mean())
+        padded = wa.window_attn(wide, bias, shift, hp, wp, c, ow)
+        same = torch.equal(padded[..., :c], narrow)
+        zeros = not bool(padded[..., c:].any())
         print(f"window_attn, {hp}x{wp} tokens, {heads} heads of "
               f"{c // heads}, shift {shift}: max {mx:.2e}, mean {mean:.2e} "
-              "against the plain version")
-        if mx > 2e-2 or mean > 2e-3:
-            fail(f"window_attn at shift {shift}: max {mx}, mean {mean}")
+              f"against the plain version; rows of {qw} in and {ow} out "
+              f"{'bit-identical' if same else 'DIFFERENT'}, padding "
+              f"{'zero' if zeros else 'NOT ZERO'}")
+        if mx > 2e-2 or mean > 2e-3 or not same or not zeros:
+            fail(f"window_attn at shift {shift}: max {mx}, mean {mean}, "
+                 f"padded rows identical {same}, padding zero {zeros}")
         worst = max(worst, mx)
+        del narrow, padded, d
 
     # The residual stream's add-and-normalise in each form the forward
     # launches (as `tests/test_torch_add_layernorm.py::FORMS`: add + norm,
@@ -1942,20 +1972,83 @@ def swinir_phase(card, frames: int = 4):
     if (gaps["max_code_gap"] > limits["max_code_gap"]
             or gaps["mean_code_gap"] > limits["mean_code_gap"]):
         fail(f"SwinIR frame 0 is {gaps} from the reference")
-    del p, outs, tree
+    # Frame 0's bytes in each tier, to hold against another tree's on the
+    # same card: the exact tier's rows are SwinIR's own in every version.
+    exact = upscale_batch([lr[0]], weights=tree, factor=4, fast=False,
+                          device=dev)[0]
+    print(f"SwinIR-M x4 frame 0, sha256: fast {sha256(outs[0])}, exact "
+          f"{sha256(exact)}")
+    del p, outs, tree, exact
 
     tokens = hp * wp
     b_ms, b_by = bound(swinir_flops.attn_flop_per_token(cfg) * tokens,
                        swinir_flops.attn_bytes_per_token(cfg) * tokens)
+    layout = []
     for shift in (0, 4):
         k_ms, p_ms, _ = time_in_turns(
             lambda: wa.window_attn_reference(qkv, bias, shift, hp, wp),
-            lambda: wa.window_attn(qkv, bias, shift, hp, wp))
+            lambda: wa.window_attn(wide, bias, shift, hp, wp, c, ow))
         rows.append((shift, k_ms, p_ms, b_ms, b_by))
-        print(f"window_attn, one {hp}x{wp} frame, shift {shift}: kernel "
-              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms "
-              f"({b_by}; {b_ms / k_ms:.1%} reached) per call (CUDA events, "
-              f"2 x 10 calls each; {card})")
+        print(f"window_attn, one {hp}x{wp} frame, shift {shift}, rows of "
+              f"{qw} in and {ow} out: kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+              f"{b_ms / k_ms:.1%} reached) per call (CUDA events, 2 x 10 "
+              f"calls each; {card})")
+        # The row layouts in turns: SwinIR's own rows, the padded rows
+        # (16-byte copies), and padded input rows with an output row that
+        # is no whole number of 16-byte groups (4-byte copies).
+        pad_ms, own_ms, w4_ms = time_in_turns(
+            lambda: wa.window_attn(qkv, bias, shift, hp, wp),
+            lambda: wa.window_attn(wide, bias, shift, hp, wp, c, ow),
+            lambda: wa.window_attn(wide, bias, shift, hp, wp, c, c + 6))
+        layout.append((shift, pad_ms, own_ms, w4_ms))
+        print(f"window_attn, one {hp}x{wp} frame, shift {shift}: rows of "
+              f"{3 * c} in and {c} out {own_ms:.3f} ms, {qw} and {ow} "
+              f"(16-byte copies) {pad_ms:.3f} ms, {qw} and {c + 6} (4-byte "
+              f"copies) {w4_ms:.3f} ms per call (CUDA events, in turns; "
+              f"{card})")
+    # qkv and proj as cuBLAS runs them on SwinIR's rows and on the padded
+    # rows, in turns; the bound is the published widths' bytes (h read, the
+    # output written) or FLOP.
+    gemms = []
+    for name, n_in, n_out, w_in, w_out in (("qkv", c, 3 * c, cw, qw),
+                                           ("proj", c, c, ow, ow)):
+        xg = torch.randn(tokens, w_in, generator=gen).to(dev, bf16)
+        xg[:, n_in:] = 0
+        wg = torch.randn(w_out, w_in, generator=gen).to(dev, bf16)
+        bg = torch.randn(w_out, generator=gen).to(dev, bf16)
+        xn, wn, bn = xg[:, :n_in].contiguous(), \
+            wg[:n_out, :n_in].contiguous(), bg[:n_out].contiguous()
+        pad_ms, own_ms, _ = time_in_turns(lambda: F.linear(xn, wn, bn),
+                                          lambda: F.linear(xg, wg, bg))
+        g_ms, g_by = bound(2.0 * tokens * n_in * n_out,
+                           2 * tokens * (n_in + n_out))
+        gemms.append((name, own_ms, pad_ms, g_ms, g_by))
+        print(f"{name} (F.linear, bf16), one {hp}x{wp} frame: K {n_in} N "
+              f"{n_out} {own_ms:.3f} ms, K {w_in} N {w_out} {pad_ms:.3f} ms, "
+              f"bound at {n_in} x {n_out} {g_ms:.3f} ms ({g_by}; "
+              f"{g_ms / pad_ms:.1%} reached padded) per call (CUDA events, in "
+              f"turns; {card})")
+        del xg, wg, bg, xn, wn, bn
+    # The group's 3x3 convolution (cuDNN, bf16, channels-last) on the plain
+    # 180-wide cast and on 184-wide rows with zero weights, in turns.
+    xc = torch.randn(1, cw, hp, wp, generator=gen).to(dev, bf16).contiguous(
+        memory_format=torch.channels_last)
+    xc[:, c:] = 0
+    wc = torch.randn(c, cw, 3, 3, generator=gen).to(dev, bf16).contiguous(
+        memory_format=torch.channels_last)
+    wc[:, c:] = 0
+    bc = torch.randn(c, generator=gen).to(dev, bf16)
+    xn = xc[:, :c].contiguous(memory_format=torch.channels_last)
+    wn = wc[:, :c].contiguous(memory_format=torch.channels_last)
+    pad_ms, own_ms, _ = time_in_turns(
+        lambda: F.conv2d(xn, wn, bc, padding=1),
+        lambda: F.conv2d(xc, wc, bc, padding=1))
+    conv = (own_ms, pad_ms)
+    print(f"group conv (cuDNN 3x3, bf16), one {hp}x{wp} frame: {c} in "
+          f"{own_ms:.3f} ms, {cw} in (zero weights) {pad_ms:.3f} ms per call "
+          f"(CUDA events, in turns; {card})")
+    del xc, wc, bc, xn, wn
     ln_ms, ln_plain_ms, _ = time_in_turns(
         lambda: al.add_layernorm_reference(x, y, norm, torch.bfloat16, x,
                                            swinir.LN_EPS),
@@ -1980,6 +2073,7 @@ def swinir_phase(card, frames: int = 4):
           f"bound {mlp_b_ms:.3f} ms ({mlp_b_by}; {mlp_b_ms / mlp_ms:.1%} "
           f"reached) per call (CUDA events, 2 x 10 calls each; {card})")
     return {"launches": launches, "err": worst, "rows": rows,
+            "layout": layout, "gemms": gemms, "conv": conv,
             "ln": {"launches": ln_launches, "err": ln_err,
                    "timed": (ln_ms, ln_plain_ms),
                    "bound": (ln_b_ms, ln_b_by)},
@@ -2115,6 +2209,7 @@ def hat_phase(card, frames: int = 2):
     if (gaps["max_code_gap"] > limits["max_code_gap"]
             or gaps["mean_code_gap"] > limits["mean_code_gap"]):
         fail(f"HAT frame 0 is {gaps} from the reference")
+    print(f"HAT x4 frame 0 (fast), sha256: {sha256(outs[0])}")
     del p, outs, tree
 
     rows = []

@@ -149,28 +149,12 @@ def prepare(tree, device="cuda", fast: bool = False) -> dict:
     wt = swinir.Weights(t, device, torch.bfloat16 if fast else torch.float32)
     ws, kw = cfg["window_size"], cfg["overlap_window"]
     c = cfg["embed_dim"]
-    # In the fast tier the rows that GEMMs and convolutions read and write
-    # are padded with zero columns, met by zero weights, to whole 16-byte
-    # groups, so that cuBLAS and cuDNN take their sm90 kernels and cuDNN
-    # makes no padded copy: the normed copies that qkv, the branch and the
-    # groups' convolutions read to ``cw`` = 184 channels
-    # (`ops.cuda.add_layernorm`'s ``h_width``), qkv's output to ``qw`` =
-    # 544, the attention's output and proj's to ``ow`` = 192 (on an H100 a
-    # frame's qkv took 0.323 ms at K = 184, N = 544 against 0.983 at 180
-    # and 540, proj 0.154 ms at 192 against 0.341 at 180).
-    cw = c + (-c % 8 if fast else 0)
-    qw = 3 * c + (-3 * c % 8 if fast else 0)
-    ow = c + (-c % 32 if fast else 0)
-
-    def wide(wb):       # a convolution's zero weights for padded inputs
-        w, b = wb
-        return F.pad(w, (0, 0, 0, 0, 0, cw - c)).contiguous(
-            memory_format=torch.channels_last), b
-
-    def lin(name, n_out, n_in):     # a linear layer, padded with zeros
-        w, b = wt.lin(name)
-        return (F.pad(w, (0, n_in - w.shape[1], 0, n_out - w.shape[0])),
-                F.pad(b, (0, n_out - b.shape[0])))
+    # The rows that GEMMs and convolutions read and write, SwinIR's rule
+    # (`swinir.row_widths`): in the fast tier the normed copies that qkv,
+    # the branch and the groups' convolutions read are ``cw`` = 184
+    # channels wide (`ops.cuda.add_layernorm`'s ``h_width``), qkv's output
+    # ``qw`` = 544, the attention's output and proj's ``ow`` = 192.
+    cw, qw, ow = swinir.row_widths(c, fast)
 
     def table(name, key_window):
         return hat_attn.offset_table(_t(t[name], device), ws, key_window)
@@ -183,8 +167,8 @@ def prepare(tree, device="cuda", fast: bool = False) -> dict:
     def attention(p, key_window, sub):
         # ``sub``: the attention's own prefix inside block ``p``
         return {"norm1": wt.ln(p + "norm1"), "norm2": wt.ln(p + "norm2"),
-                "qkv": lin(p + sub + "qkv", qw, cw),
-                "proj": lin(p + sub + "proj", ow, ow), **wt.mlp(p, fast),
+                "qkv": wt.lin(p + sub + "qkv", qw, cw),
+                "proj": wt.lin(p + sub + "proj", ow, ow), **wt.mlp(p, fast),
                 "table": table(p + sub + "relative_position_bias_table",
                                key_window),
                 "windows": (ws, key_window), "widths": (c, ow)}
@@ -195,7 +179,7 @@ def prepare(tree, device="cuda", fast: bool = False) -> dict:
     mid = cfg["compress"] + (-cfg["compress"] % 8 if fast else 0)
 
     def branch(cab):
-        w0, b0 = wide(wt.conv(cab + "0"))
+        w0, b0 = wt.conv(cab + "0", in_width=cw)
         w2, _ = wt.conv(cab + "2")
         pad = mid - w0.shape[0]
         return {"cab0": (F.pad(w0, (0, 0, 0, 0, 0, 0, 0, pad)).contiguous(
@@ -216,7 +200,7 @@ def prepare(tree, device="cuda", fast: bool = False) -> dict:
                            **branch(p + "conv_block.cab.")})
         layers.append({"blocks": blocks,
                        "ocab": attention(_OCAB.format(i), kw, ""),
-                       "conv": wide(wt.conv(f"layers.{i}.conv"))})
+                       "conv": wt.conv(f"layers.{i}.conv", in_width=cw)})
     return {**swinir.prepare_ends(wt, cfg, fast), "layers": layers,
             "norm_width": cw}
 

@@ -37,7 +37,12 @@ Two tiers (`prepare`, `forward`):
   fc2) one kernel a block (`ops.cuda.swin_mlp`, its plain version on the
   CPU; 36 launches a chunk for SwinIR-M), the hidden activation rounded
   once to bf16 and kept on the chip, its weights laid out at `prepare`;
-  qkv and proj remain ``F.linear``;
+  qkv and proj ``F.linear`` on rows padded with zero columns, met by
+  zero weights, to whole 16-byte groups (`row_widths`, HAT's rule too:
+  the normed rows that qkv and the groups' convolutions read 184 wide,
+  qkv's output 544, the attention's output and proj's 192 at SwinIR-M's
+  widths), so that cuBLAS takes its sm90 kernels, and the attention
+  kernel reading and writing those strided rows;
 - exact: float32 throughout with TF32 off (`ops.conv.exact_f32`), the
   window attention as plain torch operations (`window_attn_reference`),
   the MLP as ``F.linear``, ``F.gelu``, ``F.linear``.
@@ -195,6 +200,22 @@ def _d2s_order(w: torch.Tensor, factor: int) -> torch.Tensor:
     return w[perm.to(w.device)]
 
 
+def row_widths(c: int, fast: bool) -> tuple:
+    """(cw, qw, ow), the widths of the token rows that the blocks' GEMMs
+    and convolutions read and write at embedding width ``c``: the normed
+    copies that qkv (and a convolution) reads, qkv's output, and the
+    attention's output, which proj reads and writes.  The fast tier pads
+    them with zero columns, met by zero weights, to whole 16-byte groups
+    (184, 544 and 192 at C = 180), so that cuBLAS takes its sm90 kernels
+    and cuDNN makes no padded copy (on an H100 a 544x960 frame's qkv took
+    0.323 ms at K = 184, N = 544 against 0.983 at 180 and 540; proj 0.154
+    ms at 192 against 0.341 at 180); the exact tier keeps SwinIR's own
+    rows."""
+    if not fast:
+        return c, 3 * c, c
+    return c + -c % 8, 3 * c + -3 * c % 8, c + -c % 32
+
+
 class Weights:
     """A bare state dict's tensors on ``device`` in a tier's types
     (``dt``: bf16 for the fast tier, f32 for the exact one)."""
@@ -202,20 +223,27 @@ class Weights:
     def __init__(self, t: dict, device, dt):
         self.t, self.device, self.dt = t, device, dt
 
-    def conv(self, name, fixed=None) -> tuple:
+    def conv(self, name, fixed=None, in_width=None) -> tuple:
         """A convolution's (weight in channels-last memory, bias) in
-        ``dt``; ``fixed`` reorders both first."""
+        ``dt``; ``fixed`` reorders both first; ``in_width``: input
+        channels padded with zero weights to that width."""
         w = _t(self.t[name + ".weight"], self.device)
         b = _t(self.t[name + ".bias"], self.device)
         if fixed is not None:
             w, b = fixed(w), fixed(b)
+        if in_width is not None:
+            w = F.pad(w, (0, 0, 0, 0, 0, in_width - w.shape[1]))
         return (w.to(self.dt).contiguous(memory_format=torch.channels_last),
                 b.to(self.dt))
 
-    def lin(self, name) -> tuple:
-        """A linear layer's (weight, bias) in ``dt``."""
-        return _t(self.t[name + ".weight"], self.device, self.dt), \
-            _t(self.t[name + ".bias"], self.device, self.dt)
+    def lin(self, name, n_out=None, n_in=None) -> tuple:
+        """A linear layer's (weight, bias) in ``dt``, padded with zero
+        rows to ``n_out`` outputs and zero columns to ``n_in`` inputs."""
+        w = _t(self.t[name + ".weight"], self.device, self.dt)
+        b = _t(self.t[name + ".bias"], self.device, self.dt)
+        n_out, n_in = n_out or w.shape[0], n_in or w.shape[1]
+        return (F.pad(w, (0, n_in - w.shape[1], 0, n_out - w.shape[0])),
+                F.pad(b, (0, n_out - b.shape[0])))
 
     def ln(self, name) -> tuple:
         """A LayerNorm's (weight, bias) in f32."""
@@ -268,12 +296,15 @@ def prepare(tree, device="cuda", fast: bool = False) -> dict:
     bf16 (fast) or f32, LayerNorms f32, each block's relative-position
     bias gathered to (heads, w*w, w*w) f32 and its shift; in the fast
     tier each block's MLP as `ops.cuda.swin_mlp.prepare` lays it out
-    (``mlp``), in the exact tier its ``fc1`` and ``fc2``."""
+    (``mlp``), in the exact tier its ``fc1`` and ``fc2``; qkv and proj
+    padded with zeros to the tier's `row_widths` (``norm_width``, the
+    normed rows qkv reads)."""
     t = unwrap(tree)
     cfg = config_of(t)
     device = torch.device(device)
     wt = Weights(t, device, torch.bfloat16 if fast else torch.float32)
-    win = cfg["window_size"]
+    win, c = cfg["window_size"], cfg["embed_dim"]
+    cw, qw, ow = row_widths(c, fast)
     layers = []
     for i, depth in enumerate(cfg["depths"]):
         blocks = []
@@ -281,14 +312,19 @@ def prepare(tree, device="cuda", fast: bool = False) -> dict:
             p = _BLOCK.format(i, j)
             blocks.append({
                 "norm1": wt.ln(p + "norm1"), "norm2": wt.ln(p + "norm2"),
-                "qkv": wt.lin(p + "attn.qkv"),
-                "proj": wt.lin(p + "attn.proj"), **wt.mlp(p, fast),
+                "qkv": wt.lin(p + "attn.qkv", qw, cw),
+                "proj": wt.lin(p + "attn.proj", ow, ow), **wt.mlp(p, fast),
                 "bias": relative_bias(_t(t[p + "attn.relative_position_"
                                            "bias_table"], device), win),
-                "shift": 0 if j % 2 == 0 else win // 2})
+                "shift": 0 if j % 2 == 0 else win // 2,
+                "widths": (c, ow)})
+        # the group's convolution reads the last block's cast at cw, with
+        # zero weights for the padding: on an H100 cuDNN took 1.338 ms a
+        # frame at 184 channels in against 1.682 at 180, which it pads
         layers.append({"blocks": blocks,
-                       "conv": wt.conv(f"layers.{i}.conv")})
-    return {**prepare_ends(wt, cfg, fast), "layers": layers}
+                       "conv": wt.conv(f"layers.{i}.conv", in_width=cw)})
+    return {**prepare_ends(wt, cfg, fast), "layers": layers,
+            "norm_width": cw}
 
 
 def _add_norm(x: torch.Tensor, y, norm, dt, fast: bool, x_out=None,
@@ -327,24 +363,25 @@ def _conv(x: torch.Tensor, wb) -> torch.Tensor:
 
 
 def _block(t: torch.Tensor, hn: list, blk: dict, nxt, ph: int, pw: int,
-           fast: bool, dt, fresh: bool = False) -> torch.Tensor:
+           fast: bool, dt, fresh: bool = False,
+           h_width=None) -> torch.Tensor:
     """One Swin transformer layer on the f32 residual stream ``t``; ``hn``
     holds its ``norm1`` alone.  The block pops that copy, so that it is
     freed once qkv has read it, puts the stream's ``nxt`` norm in ``dt``
     in its place (the next block's ``norm1``; None: the plain cast the
-    group's convolution reads) and returns the stream.  The stream is
-    updated in place, but for the first add when ``fresh``: the group's
-    input still holds its residual."""
+    group's convolution reads), in rows of ``h_width``, and returns the
+    stream.  The stream is updated in place, but for the first add when
+    ``fresh``: the group's input still holds its residual."""
     qkv = F.linear(hn.pop(), *blk["qkv"])
     attn = window_attn if fast else window_attn_reference
-    o = attn(qkv, blk["bias"], blk["shift"], ph, pw)
+    o = attn(qkv, blk["bias"], blk["shift"], ph, pw, *blk["widths"])
     del qkv
     t, h = _add_norm(t, F.linear(o, *blk["proj"]), blk["norm2"], dt, fast,
                      None if fresh else t)
     del o
     y = mlp(h, blk, fast)
     del h
-    t, h = _add_norm(t, y, nxt, dt, fast, t)
+    t, h = _add_norm(t, y, nxt, dt, fast, t, h_width=h_width)
     hn.append(h)
     return t
 
@@ -370,20 +407,23 @@ def _forward(net: dict, x: torch.Tensor, to_u8: bool) -> torch.Tensor:
     cfg, fast, dt = net["cfg"], net["fast"], net["dtype"]
     h, w = x.shape[1:3]
     ph, pw = padded_size(h, w, cfg["window_size"])
-    layers = net["layers"]
+    layers, cw = net["layers"], net["norm_width"]
     with span("swinir.embed"):
-        f0, t, hn = embed(net, x, ph, pw, layers[0]["blocks"][0]["norm1"])
+        f0, t, hn = embed(net, x, ph, pw, layers[0]["blocks"][0]["norm1"],
+                          cw)
         hn = [hn]
     for i, layer in enumerate(layers):
         with span("swinir.rstb"):
             r, blocks = t, layer["blocks"]
             for j, blk in enumerate(blocks):
                 nxt = blocks[j + 1]["norm1"] if j + 1 < len(blocks) else None
-                t = _block(t, hn, blk, nxt, ph, pw, fast, dt, fresh=j == 0)
+                t = _block(t, hn, blk, nxt, ph, pw, fast, dt, fresh=j == 0,
+                           h_width=cw)
             y = _to_tokens(_conv(_to_map(hn.pop(), ph, pw), layer["conv"]))
-            nxt = (layers[i + 1]["blocks"][0]["norm1"]
-                   if i + 1 < len(layers) else net["norm"])
-            t, normed = _add_norm(r, y, nxt, dt, fast, r)
+            last = i + 1 == len(layers)
+            nxt = net["norm"] if last else layers[i + 1]["blocks"][0]["norm1"]
+            t, normed = _add_norm(r, y, nxt, dt, fast, r,
+                                  h_width=None if last else cw)
             hn.append(normed)
             del r, y, normed
     del t

@@ -148,7 +148,7 @@ def load() -> ctypes.CDLL:
                 [ptr, i64, ptr, ptr, i64] + [i32] * 12
                 + [ptr, ptr, ptr, i64, ptr, i64, ptr, i32, ptr])
             lib.srt_conv_stage.restype = i32
-            lib.srt_window_attn.argtypes = ([ptr] * 3 + [i32] * 6
+            lib.srt_window_attn.argtypes = ([ptr] * 3 + [i32] * 8
                                             + [ctypes.c_float, ptr])
             lib.srt_window_attn.restype = i32
             lib.srt_add_layernorm.argtypes = (

@@ -6,10 +6,12 @@ and `window_attn_reference`, its plain version, on CPU tensors; the exact
 tier of `models.swinir` calls the plain version on any device.
 
 Both take ``qkv`` (frames, P*Q, 3*C), the `qkv` projection's output in
-SwinIR's channel order (part*C + head*hd + d, part q/k/v), and ``bias``
+SwinIR's channel order (part*C + head*hd + d, part q/k/v; wider rows,
+whose first 3*C channels are read, with ``channels`` = C), and ``bias``
 (heads, 64, 64), the relative-position bias gathered for one block
 (`relative_bias`), and return (frames, P*Q, C) in the grid's own token
-order: the grid rolled by (-shift, -shift), cut into 8x8 windows,
+order (rows of ``out_width`` with zero columns after C, where given):
+the grid rolled by (-shift, -shift), cut into 8x8 windows,
 ``softmax(q k^T * hd^-0.5 + bias + mask) v`` per window and head, the
 windows merged and rolled back.  The mask is SwinIR's `calculate_mask`
 for a P x Q grid (`shift_mask`).  `LAUNCHES` counts the kernel's
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 WINDOW = 8
 LAUNCHES = 0
@@ -62,14 +65,16 @@ def shift_mask(height: int, width: int, shift: int,
 
 
 def window_attn_reference(qkv: torch.Tensor, bias: torch.Tensor, shift: int,
-                          height: int, width: int) -> torch.Tensor:
+                          height: int, width: int, channels=None,
+                          out_width=None) -> torch.Tensor:
     """The plain version: roll, window partition, attention in float32
     (q scaled first, then bias, then mask, as SwinIR orders them), merge,
     roll back; the result in ``qkv``'s dtype."""
-    f, n, c3 = qkv.shape
-    c, heads, w = c3 // 3, bias.shape[0], WINDOW
+    f, n = qkv.shape[:2]
+    c = channels or qkv.shape[2] // 3
+    c3, heads, w = 3 * c, bias.shape[0], WINDOW
     hd = c // heads
-    x = qkv.float().reshape(f, height, width, c3)
+    x = qkv[..., :c3].float().reshape(f, height, width, c3)
     if shift:
         x = torch.roll(x, (-shift, -shift), (1, 2))
     x = x.reshape(f, height // w, w, width // w, w, 3, heads, hd) \
@@ -85,21 +90,26 @@ def window_attn_reference(qkv: torch.Tensor, bias: torch.Tensor, shift: int,
         .permute(0, 1, 4, 2, 5, 3, 6).reshape(f, height, width, c)
     if shift:
         o = torch.roll(o, (shift, shift), (1, 2))
-    return o.reshape(f, n, c).to(qkv.dtype)
+    o = o.reshape(f, n, c).to(qkv.dtype)
+    return o if out_width in (None, c) else F.pad(o, (0, out_width - c))
 
 
 def window_attn(qkv: torch.Tensor, bias: torch.Tensor, shift: int,
-                height: int, width: int) -> torch.Tensor:
+                height: int, width: int, channels=None,
+                out_width=None) -> torch.Tensor:
     """bf16 ``qkv`` -> bf16 output (see the module); CPU tensors take
     `window_attn_reference`, CUDA tensors launch ``window_attn_kernel``
     on the current stream (no synchronisation)."""
     global LAUNCHES
-    if qkv.dim() != 3 or qkv.shape[2] % 3:
+    c = channels or (qkv.shape[2] // 3 if qkv.dim() == 3 else 0)
+    if qkv.dim() != 3 or c < 1 or qkv.shape[2] < 3 * c \
+            or (channels is None and qkv.shape[2] % 3):
         raise ValueError(f"qkv must be (frames, tokens, 3*C), got "
                          f"{tuple(qkv.shape)}")
-    f, n, c3 = qkv.shape
-    heads = bias.shape[0]
-    c = c3 // 3
+    if out_width is not None and out_width < c:
+        raise ValueError(f"out_width {out_width} is under {c} channels")
+    f, n, ldi = qkv.shape
+    heads, ldo = bias.shape[0], out_width or c
     if n != height * width or height % WINDOW or width % WINDOW:
         raise ValueError(f"{n} tokens are not a {height}x{width} grid of "
                          f"whole {WINDOW}x{WINDOW} windows")
@@ -109,7 +119,8 @@ def window_attn(qkv: torch.Tensor, bias: torch.Tensor, shift: int,
     if not 0 <= shift < WINDOW:
         raise ValueError(f"shift must be in [0, {WINDOW}), got {shift}")
     if qkv.device.type == "cpu":
-        return window_attn_reference(qkv, bias, shift, height, width)
+        return window_attn_reference(qkv, bias, shift, height, width,
+                                     channels, out_width)
     if qkv.device.type != "cuda":
         raise ValueError(f"window_attn runs on cpu or cuda, not "
                          f"{qkv.device}")
@@ -117,14 +128,14 @@ def window_attn(qkv: torch.Tensor, bias: torch.Tensor, shift: int,
     if qkv.dtype != torch.bfloat16 or bias.dtype != torch.float32:
         raise TypeError(f"the kernel takes bf16 qkv and f32 bias, not "
                         f"{qkv.dtype} and {bias.dtype}")
-    if hd % 2 or hd > 32:
-        raise ValueError(f"the kernel takes an even head width up to 32, "
-                         f"not {hd}")
+    if hd % 2 or hd > 32 or ldi % 2 or ldo % 2:
+        raise ValueError(f"the kernel takes an even head width up to 32 and "
+                         f"even rows, not {hd}, {ldi} and {ldo}")
     if not (qkv.is_contiguous() and bias.is_contiguous()):
         raise ValueError("qkv and bias must be contiguous")
     if bias.device != qkv.device:
         raise ValueError(f"bias is on {bias.device}, qkv on {qkv.device}")
-    out = torch.empty((f, n, c), device=qkv.device, dtype=torch.bfloat16)
+    out = torch.empty((f, n, ldo), device=qkv.device, dtype=torch.bfloat16)
     if out.numel() == 0:
         return out
     from rusty_sr_tpu_torch.ops.cuda import _build
@@ -134,7 +145,7 @@ def window_attn(qkv: torch.Tensor, bias: torch.Tensor, shift: int,
             torch.cuda.current_stream(qkv.device).cuda_stream)
         rc = lib.srt_window_attn(qkv.data_ptr(), bias.data_ptr(),
                                  out.data_ptr(), f, height, width, heads, hd,
-                                 shift, hd ** -0.5, stream)
+                                 ldi, ldo, shift, hd ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"window_attn kernel launch failed: "
                            f"{lib.srt_error_string(rc).decode()} ({rc})")

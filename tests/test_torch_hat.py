@@ -241,6 +241,31 @@ def test_full_size_tree_has_the_published_widths():
                                 64, 4)
 
 
+@pytest.mark.parametrize("fast", [True, False])
+def test_prepare_takes_swinirs_row_widths(fast, monkeypatch):
+    """HAT's rows come from SwinIR's rule (`swinir.row_widths`), so the
+    two networks cannot drift apart: at C = 180 the fast tier's normed
+    rows are 184 wide, qkv (544, 184), proj (192, 192), the branch's and
+    the group's convolutions read 184 channels; the exact tier keeps
+    180, 540 and 180.  One group of one hybrid block and its OCAB."""
+    calls = []
+    rule = swinir.row_widths
+    monkeypatch.setattr(swinir, "row_widths",
+                        lambda c, f: calls.append((c, f)) or rule(c, f))
+    cfg = dict(CFG, embed_dim=180, window_size=16, depths=[1],
+               num_heads=[6], squeeze_factor=30, num_feat=64)
+    net = hat.prepare(ref.draw_weights(2 ** 31 + 31, cfg), "cpu", fast)
+    cw, qw, ow = (184, 544, 192) if fast else (180, 540, 180)
+    assert calls == [(180, fast)] and net["norm_width"] == cw
+    layer = net["layers"][0]
+    for blk in (layer["blocks"][0], layer["ocab"]):
+        assert blk["qkv"][0].shape == (qw, cw) and blk["qkv"][1].shape == (qw,)
+        assert blk["proj"][0].shape == (ow, ow)
+        assert blk["widths"] == (180, ow)
+    assert layer["blocks"][0]["cab0"][0].shape[1] == cw
+    assert layer["conv"][0].shape[1] == cw
+
+
 @pytest.mark.parametrize("in_place", [False, True])
 @pytest.mark.parametrize("norm", [True, False])
 def test_three_term_add_layernorm_plain(in_place, norm):

@@ -29,6 +29,7 @@ import weakref
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -239,6 +240,118 @@ def test_exact_forward_keeps_f32_layer_norm(tree, monkeypatch):
     assert forms.count((True, False)) == 2
 
 
+def test_fast_prepare_pads_qkv_and_proj(tree_m):
+    """SwinIR-M's fast tier: qkv (544, 184) and proj (192, 192), the
+    tree's bf16 weights in the corner and exact zeros in the padded rows
+    and columns of weights and biases; the normed rows 184 wide, and the
+    groups' convolutions read 184 channels, the last 4 with zero weights;
+    the exact tier keeps SwinIR's own (540, 180), (180, 180) and 180
+    channels in f32."""
+    fast, exact = (swinir.prepare(tree_m, "cpu", f) for f in (True, False))
+    assert swinir.row_widths(180, True) == (184, 544, 192)
+    assert fast["norm_width"] == 184 and exact["norm_width"] == 180
+    for i, j in ((0, 0), (5, 5)):
+        p = swinir._BLOCK.format(i, j) + "attn."
+        blk, plain = fast["layers"][i]["blocks"][j], \
+            exact["layers"][i]["blocks"][j]
+        for name, shape, n_out, n_in in (("qkv", (544, 184), 540, 180),
+                                         ("proj", (192, 192), 180, 180)):
+            w, b = blk[name]
+            assert w.shape == shape and b.shape == shape[:1]
+            assert w.dtype == b.dtype == torch.bfloat16
+            want_w = torch.as_tensor(tree_m[p + name + ".weight"])
+            want_b = torch.as_tensor(tree_m[p + name + ".bias"])
+            assert torch.equal(w[:n_out, :n_in], want_w.to(torch.bfloat16))
+            assert torch.equal(b[:n_out], want_b.to(torch.bfloat16))
+            assert not w[n_out:].any() and not w[:, n_in:].any()
+            assert not b[n_out:].any()
+            assert torch.equal(plain[name][0], want_w.float())
+            assert torch.equal(plain[name][1], want_b.float())
+        assert blk["widths"] == (180, 192) and plain["widths"] == (180, 180)
+    for i in (0, 5):
+        w = fast["layers"][i]["conv"][0]
+        want = torch.as_tensor(tree_m[f"layers.{i}.conv.weight"])
+        assert w.shape == (180, 184, 3, 3) and not w[:, 180:].any()
+        assert torch.equal(w[:, :180], want.to(torch.bfloat16))
+        assert torch.equal(exact["layers"][i]["conv"][0], want.float())
+
+
+@pytest.mark.parametrize("shift", [0, 4])
+def test_attention_reads_wide_rows_and_pads_its_output(shift):
+    """`window_attn_reference` (and `window_attn` on CPU tensors, which
+    runs it) on the fast tier's padded rows: qkv's first 3C channels of
+    wider rows read (the padding holds NaN, which must not reach the
+    output), the output widened with zero columns; the values those of
+    the call on unpadded rows, bit for bit."""
+    g = torch.Generator().manual_seed(shift)
+    qkv = torch.randn(2, 16 * 24, 72, generator=g).to(torch.bfloat16)
+    bias = wa.relative_bias(torch.randn(225, 3, generator=g))
+    narrow = wa.window_attn_reference(qkv, bias, shift, 16, 24)
+    wide_in = torch.cat([qkv, torch.full((2, 16 * 24, 8), float("nan"),
+                                         dtype=torch.bfloat16)], -1)
+    for fn in (wa.window_attn_reference, wa.window_attn):
+        got = fn(wide_in, bias, shift, 16, 24, channels=24, out_width=32)
+        assert got.shape == (2, 16 * 24, 32) and got.dtype == torch.bfloat16
+        assert torch.equal(got[..., 24:], torch.zeros_like(got[..., 24:]))
+        assert torch.equal(got[..., :24], narrow)
+    with pytest.raises(ValueError, match="out_width 20 is under 24"):
+        wa.window_attn(wide_in, bias, shift, 16, 24, channels=24,
+                       out_width=20)
+    with pytest.raises(ValueError, match="3\\*C"):
+        wa.window_attn(wide_in, bias, shift, 16, 24, channels=27)
+
+
+def _unpadded(net: dict, tree: dict, dt) -> dict:
+    """``net`` with qkv, proj and the groups' convolutions as the tree's
+    own weights in ``dt``, the rows SwinIR's: the layout before the fast
+    tier padded them."""
+    c = net["cfg"]["embed_dim"]
+
+    def own(name):
+        return tuple(torch.as_tensor(tree[name + k]).to(dt)
+                     for k in (".weight", ".bias"))
+    layers = []
+    for i, layer in enumerate(net["layers"]):
+        blocks = []
+        for j, blk in enumerate(layer["blocks"]):
+            p = swinir._BLOCK.format(i, j) + "attn."
+            blocks.append({**blk, "widths": (c, c), "qkv": own(p + "qkv"),
+                           "proj": own(p + "proj")})
+        w, b = own(f"layers.{i}.conv")
+        layers.append({**layer, "blocks": blocks, "conv": (
+            w.contiguous(memory_format=torch.channels_last), b)})
+    return {**net, "layers": layers, "norm_width": c}
+
+
+def test_exact_forward_keeps_swinirs_rows(tree):
+    """The exact tier's rows are not padded: its forward is byte-identical
+    to the one on the unpadded layout that the test builds itself."""
+    frames = torch.from_numpy(_frames(22, 2, 24, 32))
+    net = swinir.prepare(tree, "cpu", False)
+    assert net["norm_width"] == 24
+    assert net["layers"][0]["blocks"][0]["qkv"][0].shape == (72, 24)
+    out = swinir.forward(net, frames, to_u8=False)
+    want = swinir.forward(_unpadded(net, tree, torch.float32), frames,
+                          to_u8=False)
+    assert torch.equal(out, want)
+
+
+def test_fast_forward_on_padded_rows_matches_unpadded(tree_m):
+    """SwinIR-M's fast tier on one frame: the padded rows give the output
+    of the unpadded layout the test builds itself within the fast tier's
+    bounds.  Zero columns against zero weights add exact zeros, but a
+    GEMM over 192 columns sums in another order than over 180: a bf16
+    unit here and there in proj's output, carried through 36 blocks,
+    measured 4.0e-3 largest and 6.5e-4 mean, the size of the fast tier's
+    own gap to the reference (3.8e-3 and 7.0e-4 on this frame)."""
+    frames = torch.from_numpy(_frames(23, 1, 16, 16))
+    net = swinir.prepare(tree_m, "cpu", True)
+    out = swinir.forward(net, frames, to_u8=False)
+    want = swinir.forward(_unpadded(net, tree_m, torch.bfloat16), frames,
+                          to_u8=False)
+    assert _within(out, want, True)
+
+
 @pytest.mark.parametrize("wrap", ["params_ema", "params", None])
 def test_official_layout_loads(tree, tmp_path, wrap):
     """A checkpoint as `torch.save` writes it, with the index and mask
@@ -345,23 +458,31 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", [0, 4])
-def test_window_attn_kernel_matches_plain(cuda_device, shift):
+@pytest.mark.parametrize("ldi,ldo", [(540, 180), (544, 192)])
+def test_window_attn_kernel_matches_plain(cuda_device, shift, ldi, ldo):
     """The cell's frame, 960x540 padded to 544x960 (8,160 windows), 6
-    heads of 30, against the plain version on the same bf16 inputs in
-    float32.  Bound: the kernel rounds P to bf16 before P v and its
-    output to bf16 (2^-9 relative each, outputs up to ~4): 2e-2 largest,
-    2e-3 mean."""
+    heads of 30, in SwinIR's rows (540 in, 180 out) and the fast tier's
+    padded rows (544 in, 192 out; the padding of qkv holds NaN), against
+    the plain version on the same bf16 inputs in float32.  Bound: the
+    kernel rounds P to bf16 before P v and its output to bf16 (2^-9
+    relative each, outputs up to ~4): 2e-2 largest, 2e-3 mean.  The
+    padded output ends in exact zeros, and its values are those of the
+    call on unpadded rows, bit for bit."""
     g = torch.Generator().manual_seed(shift)
     qkv = torch.randn(1, 544 * 960, 540, generator=g).to(cuda_device,
                                                          torch.bfloat16)
     bias = wa.relative_bias(torch.randn(225, 6, generator=g).to(cuda_device))
+    rows = F.pad(qkv, (0, ldi - 540), value=float("nan"))
     n = wa.LAUNCHES
-    out = wa.window_attn(qkv, bias, shift, 544, 960)
+    out = wa.window_attn(rows, bias, shift, 544, 960, 180, ldo)
     torch.cuda.synchronize()
-    assert wa.LAUNCHES == n + 1
+    assert wa.LAUNCHES == n + 1 and out.shape == (1, 544 * 960, ldo)
     want = wa.window_attn_reference(qkv.float(), bias, shift, 544, 960)
-    d = (out.float() - want).abs()
+    d = (out[..., :180].float() - want).abs()
     assert float(d.max()) <= 2e-2 and float(d.mean()) <= 2e-3
+    assert torch.equal(out[..., 180:], torch.zeros_like(out[..., 180:]))
+    assert torch.equal(out[..., :180], wa.window_attn(qkv, bias, shift, 544,
+                                                      960))
     if shift:       # the shift is not a no-op at this size
         unshifted = wa.window_attn_reference(qkv.float(), bias, 0, 544, 960)
-        assert float((out.float() - unshifted).abs().max()) > 0.1
+        assert float((out[..., :180].float() - unshifted).abs().max()) > 0.1
